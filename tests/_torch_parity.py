@@ -1,0 +1,118 @@
+"""Shared helpers for the tests that hold the PyTorch port against the JAX
+package: one set of numpy inputs, made from a seed, fed to both sides.
+
+The port never imports this module.  Parameters are drawn the way
+``weights.random_darknet_bytes`` draws them (non-trivial BN statistics, so
+folding matters; ~unit-gain kernels, so activations stay O(1) through the
+depth) and kept in the JAX package's layout (HWIO kernels, numpy arrays);
+``yolov4tpu_torch.models.network.params_from_jax`` carries them across.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from yolov4tpu import weights as jweights
+from yolov4tpu.models import network as jnetwork
+
+SHALLOW = (1, 1, 1, 1, 1)
+IMG = 64
+
+# The suite runs several pytest workers side by side on a few cores.
+torch.set_num_threads(1)
+
+
+@functools.lru_cache(maxsize=None)
+def well_conditioned(num_classes: int, seed: int = 0, csp_repeats=SHALLOW):
+    """(params, state) numpy pytrees in the JAX layout, drawn in the order
+    and with the distributions of ``random_darknet_bytes``.  Cached: read
+    them, do not write them."""
+    rng = np.random.default_rng(seed)
+    convs, bn = [], []
+    for spec in jnetwork.conv_specs(num_classes, tuple(csp_repeats)):
+        f, k, cin = spec.filters, spec.kernel_size, spec.in_ch
+        p = {}
+        if spec.batch_norm:
+            p["beta"] = rng.normal(0.0, 0.1, f).astype(np.float32)
+            p["gamma"] = rng.uniform(0.8, 1.2, f).astype(np.float32)
+            bn.append({"mean": rng.normal(0.0, 0.1, f).astype(np.float32),
+                       "var": rng.uniform(0.5, 1.5, f).astype(np.float32)})
+        else:
+            p["b"] = rng.normal(0.0, 0.1, f).astype(np.float32)
+            bn.append(None)
+        w = rng.normal(0.0, 1.0 / np.sqrt(k * k * cin), (f, cin, k, k))
+        p["w"] = np.ascontiguousarray(w.astype(np.float32).transpose(2, 3, 1, 0))
+        convs.append(p)
+    return {"convs": convs}, {"bn": bn}
+
+
+@functools.lru_cache(maxsize=None)
+def torch_params(num_classes: int, seed: int = 0):
+    """``well_conditioned`` carried into the port by ``params_from_jax``.
+    Cached: read them, do not write them."""
+    from yolov4tpu_torch.models.network import params_from_jax
+    return params_from_jax(*well_conditioned(num_classes, seed))
+
+
+def images(seed: int, batch: int, img: int = IMG) -> np.ndarray:
+    """(B, img, img, 3) uint8 rasters with some spatial structure."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0, 255, (batch, img // 8, img // 8, 3))
+    smooth = np.repeat(np.repeat(coarse, 8, axis=1), 8, axis=2)
+    noise = rng.normal(0.0, 20.0, smooth.shape)
+    return np.clip(smooth + noise, 0, 255).astype(np.uint8)
+
+
+jax_fold_bn = jax.jit(jnetwork.fold_bn)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(num_classes: int, s2d_stem: bool, compute_dtype):
+    return jax.jit(functools.partial(
+        jnetwork.apply_folded, num_classes=num_classes,
+        compute_dtype=compute_dtype, csp_repeats=SHALLOW, s2d_stem=s2d_stem))
+
+
+def jax_raws(params, state, imgs: np.ndarray, num_classes: int,
+             s2d_stem: bool = True, compute_dtype=jnp.float32):
+    """The JAX folded forward's raw NHWC grids, as numpy arrays."""
+    fwd = _jax_forward(num_classes, s2d_stem, compute_dtype)
+    return [np.asarray(o) for o in fwd(jax_fold_bn(params, state),
+                                       np.asarray(imgs, np.float32))]
+
+
+@functools.lru_cache(maxsize=None)
+def calibrated(num_classes: int, seed: int = 0, target: float = 30.0):
+    """Well-conditioned shallow params whose head biases are shifted (by the
+    JAX package's ``calibrate_detection_density``) so ~``target`` boxes per
+    image clear the 0.3 score threshold, with the nearest score kept as far
+    from it as the calibration can.  Returns (params, state, imgs (B,H,W,3)
+    float32 in [0, 1]) — read them, do not write them."""
+    params, state = well_conditioned(num_classes, seed)
+    imgs = images(seed, 2).astype(np.float32) / 255.0
+    raws = jax_raws(params, state, imgs, num_classes)
+    params, _ = jweights.calibrate_detection_density(
+        params, raws, num_classes, target_per_image=target)
+    return params, state, imgs
+
+
+def to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_detections_equal(got, want, box_atol: float, score_atol: float):
+    """Two combined-NMS output tuples (boxes, scores, classes, valid):
+    valid counts and classes equal, boxes and scores within the tolerances."""
+    got = [to_numpy(o) for o in got]
+    want = [to_numpy(o) for o in want]
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=score_atol)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=box_atol)

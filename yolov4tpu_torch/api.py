@@ -1,0 +1,267 @@
+"""``Yolov4`` — the reference-compatible user facade, on PyTorch and CUDA.
+
+Counterpart of ``yolov4tpu.api`` for inference: construction from darknet
+``.weights`` or a seeded random init, ``predict``, ``predict_img``,
+``predict_batch``, ``predict_raw`` and ``predict_nonms``.  The inference
+path is the BN-folded forward (models.network) -> fused decode (ops.detect)
+-> candidate NMS with the CUDA suppression kernel (ops.nms_cuda).
+
+The entry points run on the card: ``device="cuda"`` is the default and
+raises on a host without CUDA.  ``device="cpu"`` runs the same code on the
+CPU, where the suppression kernel's plain torch version stands in for it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import weights
+from .config import DEFAULT_CONFIG, YoloConfig
+from .models import head, network
+from .ops.detect import detect_fused
+from .ops.nms import combined_nms
+from .utils.visualize import draw_bbox, get_detection_data
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for CUDA on a host without it
+    (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available on this host; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
+def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype):
+    """End-to-end inference fn: (folded, images, iou_t, score_t) ->
+    (boxes (B,T,4), scores (B,T), classes (B,T), valid_detections (B,)).
+
+    ``images`` is (B, H, W, 3) NHWC on the folded params' device: float in
+    [0, 1], or uint8 in [0, 255], divided by 255 on the device.
+    """
+    if cfg.nms_impl == "pallas":
+        raise NotImplementedError(
+            "nms_impl='pallas' needs the port of nms_pallas._suppress_kernel "
+            "(ROADMAP.md queue B item 2); use 'fast' or 'xla'")
+    if cfg.nms_impl not in ("fast", "xla"):
+        raise ValueError(f"unknown nms_impl {cfg.nms_impl!r}")
+    anchors = cfg.anchors_grouped
+    strides, xyscale, img_size = cfg.strides, cfg.xyscale, cfg.img_size
+
+    @torch.inference_mode()
+    def infer_fn(folded, images, iou_t, score_t):
+        if images.dtype == torch.uint8:
+            images = images.to(torch.float32) / 255.0
+        raws = network.apply_folded(folded, images, num_classes,
+                                    compute_dtype,
+                                    csp_repeats=cfg.csp_repeats,
+                                    s2d_stem=cfg.s2d_stem)
+        if cfg.nms_impl == "fast":
+            return detect_fused(
+                raws, anchors, num_classes, strides, xyscale, img_size[0],
+                iou_threshold=iou_t, score_threshold=score_t,
+                max_per_class=cfg.max_boxes, max_total=cfg.max_boxes,
+                candidates=cfg.nms_pre_top_k)
+        outs = head.decode_head(raws, anchors, num_classes, strides, xyscale)
+        boxes, scores = head.flatten_boxes_scores(outs, img_size[0],
+                                                  num_classes)
+        return combined_nms(
+            boxes, scores, iou_threshold=iou_t, score_threshold=score_t,
+            max_per_class=cfg.max_boxes, max_total=cfg.max_boxes,
+            pre_top_k=cfg.nms_pre_top_k)
+
+    return infer_fn
+
+
+class Yolov4:
+    """YOLOv4 detector with a reference-compatible API surface."""
+
+    def __init__(self, weight_path: Optional[str] = None,
+                 class_name_path: str = "coco_classes.txt",
+                 config: YoloConfig = DEFAULT_CONFIG, seed: int = 0,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        if isinstance(config, dict):  # accept reference-style dicts
+            config = _config_from_dict(config)
+        self.config = config
+        with open(class_name_path) as f:
+            self.class_names = [line.strip() for line in f.readlines()]
+        self.num_classes = len(self.class_names)
+        if self.num_classes == 0:
+            raise ValueError(f"no classes in {class_name_path}")
+        self.img_size = config.img_size
+        self.weight_path = weight_path
+        self.anchors = config.anchors_grouped
+        self.xyscale = config.xyscale
+        self.strides = config.strides
+        self.output_sizes = list(config.grid_sizes())
+        self.max_boxes = config.max_boxes
+        self.iou_loss_thresh = config.iou_loss_thresh
+        self.class_color = {name: list(np.random.random(size=3) * 255)
+                            for name in self.class_names}
+        self._seed = seed
+        self.build_model(load_pretrained=bool(weight_path))
+
+    # ------------------------------------------------------------------
+    # Build / weights
+    # ------------------------------------------------------------------
+    def build_model(self, load_pretrained: bool = True):
+        """Initialise (or load) params and build the inference function."""
+        if load_pretrained and self.weight_path:
+            if tuple(self.config.csp_repeats) != (1, 2, 8, 8, 4):
+                raise ValueError(
+                    "pretrained weights require the full CSPDarknet53 depth "
+                    "(csp_repeats=(1,2,8,8,4)); shallow variants train from "
+                    "scratch")
+            if not self.weight_path.endswith(".weights"):
+                raise NotImplementedError(
+                    f"{self.weight_path}: the port reads darknet .weights "
+                    "only; checkpoints and keras .h5 files wait for "
+                    "ROADMAP.md queue A item 13")
+            self.params, self.state = weights.load_darknet_weights(
+                self.weight_path, self.num_classes)
+            print(f"load from {self.weight_path}")
+        else:
+            self.params, self.state, _ = network.init(
+                self.num_classes, self.img_size[0], seed=self._seed,
+                csp_repeats=self.config.csp_repeats)
+        self._refresh_inference()
+
+    def _refresh_inference(self):
+        """Fold BN, place the folded params, build the inference function."""
+        if self.config.compute_dtype not in _DTYPES:
+            raise ValueError(
+                f"unknown compute_dtype {self.config.compute_dtype!r}")
+        self._compute_dtype = _DTYPES[self.config.compute_dtype]
+        self._folded = network.prepare_folded(
+            network.fold_bn(self.params, self.state), self.device,
+            self._compute_dtype)
+        self._infer_fn = build_infer_fn(self.config, self.num_classes,
+                                        self._compute_dtype)
+
+    def sync_params(self, params, state):
+        """Swap in new (params, state) dictionaries (CPU tensors) and refold."""
+        self.params, self.state = params, state
+        self._refresh_inference()
+
+    def quantize(self, *args, **kwargs):
+        raise NotImplementedError(
+            "int8 post-training quantization is not ported yet "
+            "(ROADMAP.md queue A item 10)")
+
+    # ------------------------------------------------------------------
+    # Inference
+    # ------------------------------------------------------------------
+    def preprocess_img(self, img):
+        """Stretch resize to the model size + /255 (reference models.py:95-98)."""
+        import cv2
+        if self.config.letterbox:
+            raise NotImplementedError(
+                "letterbox preprocessing is not ported yet "
+                "(ROADMAP.md queue A item 9)")
+        h, w = self.img_size[:2]  # cv2.resize takes dsize as (width, height)
+        return cv2.resize(np.asarray(img), (w, h)) / 255.0
+
+    def _raw(self, images):
+        with torch.inference_mode():
+            return network.apply_folded(
+                self._folded, images, self.num_classes, self._compute_dtype,
+                csp_repeats=self.config.csp_repeats,
+                s2d_stem=self.config.s2d_stem)
+
+    def predict_batch(self, imgs, iou_threshold: Optional[float] = None,
+                      score_threshold: Optional[float] = None):
+        """Batched inference: (B,H,W,3) float [0,1] — or uint8 [0,255],
+        divided by 255 on the device (4x less host-to-device traffic) — as
+        a numpy array or tensor -> (boxes_norm, scores, classes,
+        valid_detections), tensors on the model's device.
+
+        The JAX package pads ragged batches to bound XLA recompiles; an
+        eager forward has nothing to recompile, and padding is exact, so
+        the port does not pad.
+        """
+        iou_t = (self.config.iou_threshold if iou_threshold is None
+                 else iou_threshold)
+        score_t = (self.config.score_threshold if score_threshold is None
+                   else score_threshold)
+        imgs = torch.as_tensor(imgs)
+        if imgs.dtype != torch.uint8:
+            imgs = imgs.to(torch.float32)
+        imgs = imgs.to(self.device)
+        return self._infer_fn(self._folded, imgs, iou_t, score_t)
+
+    def _detections(self, raw_img, img, iou_threshold=None,
+                    score_threshold=None):
+        out = self.predict_batch(np.expand_dims(img, axis=0), iou_threshold,
+                                 score_threshold)
+        return get_detection_data(img=raw_img,
+                                  model_outputs=[o.cpu().numpy() for o in out],
+                                  class_names=self.class_names)
+
+    def predict_img(self, raw_img, random_color=True, plot_img=True,
+                    figsize=(10, 10), show_text=True, return_output=False):
+        """Single-image inference + drawing (reference models.py:109-123)."""
+        detections = self._detections(raw_img, self.preprocess_img(raw_img))
+        output_img = draw_bbox(raw_img, detections, cmap=self.class_color,
+                               random_color=random_color, figsize=figsize,
+                               show_text=show_text, show_img=plot_img)
+        if return_output:
+            return output_img, detections
+        return detections
+
+    def predict(self, img_path: str, random_color=True, plot_img=True,
+                figsize=(10, 10), show_text=True):
+        """Path -> detections DataFrame (reference models.py:125-127)."""
+        return self.predict_img(_imread(img_path)[:, :, ::-1], random_color,
+                                plot_img, figsize, show_text)
+
+    def predict_raw(self, img_path: str):
+        """Raw head outputs for debugging (reference models.py:509-514):
+        the three NHWC grids as numpy arrays.  Like the reference, the image
+        is fed in cv2's BGR order."""
+        img = self.preprocess_img(_imread(img_path))
+        imgs = torch.as_tensor(np.expand_dims(img, axis=0),
+                               dtype=torch.float32).to(self.device)
+        return [o.cpu().numpy() for o in self._raw(imgs)]
+
+    def predict_nonms(self, img_path: str, iou_threshold: float = 0.413,
+                      score_threshold: float = 0.1):
+        """Inference with caller-supplied NMS thresholds
+        (reference models.py:516-529; BGR input, as there)."""
+        raw_img = _imread(img_path)
+        detections = self._detections(raw_img, self.preprocess_img(raw_img),
+                                      iou_threshold, score_threshold)
+        draw_bbox(raw_img, detections, cmap=self.class_color,
+                  random_color=True)
+        return detections
+
+
+def _imread(path: str):
+    import cv2
+    img = cv2.imread(path)
+    if img is None:
+        raise FileNotFoundError(path)
+    return img
+
+
+def _config_from_dict(d: dict) -> YoloConfig:
+    """Translate a reference-style yolo_config dict into a YoloConfig."""
+    kw = {}
+    mapping = {
+        "img_size": "img_size", "anchors": "anchors", "strides": "strides",
+        "xyscale": "xyscale", "iou_loss_thresh": "iou_loss_thresh",
+        "batch_size": "batch_size", "num_gpu": "num_devices",
+        "max_boxes": "max_boxes", "iou_threshold": "iou_threshold",
+        "score_threshold": "score_threshold",
+    }
+    for src, dst in mapping.items():
+        if src in d:
+            v = d[src]
+            kw[dst] = tuple(v) if isinstance(v, list) else v
+    return YoloConfig(**kw)

@@ -1,0 +1,116 @@
+"""Typed, frozen configuration for the PyTorch/CUDA YOLOv4 port.
+
+Same fields and defaults as ``yolov4tpu.config.YoloConfig``, so one set of
+hyperparameters describes a model in either package.  The defaults
+reproduce the tf.keras reference's ``yolo_config`` (reference config.py).
+Fields whose feature has not been ported yet (training, letterbox, int8)
+are kept so configurations move between the packages unchanged; the entry
+points that would read them raise ``NotImplementedError`` (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class YoloConfig:
+    """Hyperparameters for model topology, training and inference."""
+
+    # --- Basic (reference config.py:3-6) ---
+    img_size: Tuple[int, int, int] = (416, 416, 3)
+    anchors: Tuple[int, ...] = (
+        12, 16, 19, 36, 40, 28, 36, 75, 76, 55, 72, 146, 142, 110, 192, 243,
+        459, 401,
+    )
+    strides: Tuple[int, ...] = (8, 16, 32)
+    xyscale: Tuple[float, ...] = (1.2, 1.1, 1.05)
+
+    # --- Training (reference config.py:9-11) ---
+    iou_loss_thresh: float = 0.5
+    batch_size: int = 8
+    num_devices: int = 1
+    learning_rate: float = 1e-4
+    loss_box_weight: float = 3.54
+    loss_conf_weight: float = 64.3
+    loss_prob_weight: float = 1.0
+    label_smoothing: float = 0.0
+    use_mosaic: bool = False
+    use_cutmix: bool = False
+    use_hflip: bool = False
+    use_color_jitter: bool = False
+    multi_scale: Optional[Tuple[int, int]] = None
+    multi_scale_interval: int = 10
+    sat_epsilon: float = 0.0
+    grad_accum_steps: int = 1
+    encode_on_device: bool = False
+    transfer_uint8: bool = False
+    fused_optimizer: bool = False
+    bn_stats_gradient: bool = True
+    pallas_wgrad: bool = False
+
+    # Aspect-preserving letterbox resize instead of the reference's stretch
+    # resize.  Not ported yet: the port's preprocessing raises if it is set.
+    letterbox: bool = False
+
+    # --- Host ingest ---
+    num_workers: Optional[int] = None
+    fast_decode: bool = True
+
+    # Space-to-depth stem for BN-folded inference: the two stem convs
+    # (3->32, 32->64 downsample) run as dense convs in 2x2 block space — an
+    # exact reparametrisation (models.network._s2d_stem_kernels).
+    s2d_stem: bool = True
+
+    # --- Inference (reference config.py:14-16) ---
+    max_boxes: int = 100
+    iou_threshold: float = 0.413
+    score_threshold: float = 0.3
+
+    # Residual depth of the five CSP stages; (1,2,8,8,4) is the reference
+    # CSPDarknet53.  Darknet .weights import requires the full depth.
+    csp_repeats: Tuple[int, ...] = (1, 2, 8, 8, 4)
+    compute_dtype: str = "float32"  # "bfloat16" for fast inference
+    nms_pre_top_k: int = 256  # candidates considered by NMS
+    # NMS implementation: "fast" = global candidate reduction + the CUDA
+    # suppression kernel (ops.nms_cuda), "xla" = the plain-torch exact
+    # per-class combined NMS (ops.nms; named after the JAX package's
+    # option), "pallas" = per-class top-k + kernel (not ported yet).
+    nms_impl: str = "fast"
+
+    def __post_init__(self):
+        if self.img_size[0] != self.img_size[1]:
+            raise ValueError("img_size must be square")
+        if self.img_size[0] % self.strides[-1] != 0:
+            raise ValueError("img_size must be a multiple of the last stride")
+        if len(self.anchors) != 18:
+            raise ValueError("expected 9 anchor (w, h) pairs")
+
+    # --- Derived quantities ---
+    @property
+    def num_scales(self) -> int:
+        return len(self.strides)
+
+    @property
+    def anchors_grouped(self) -> np.ndarray:
+        """Anchors as (num_scales, 3, 2) pixel-unit array."""
+        return np.asarray(self.anchors, dtype=np.float32).reshape(3, 3, 2)
+
+    @property
+    def anchors_flat(self) -> np.ndarray:
+        """Anchors as (9, 2)."""
+        return np.asarray(self.anchors, dtype=np.float32).reshape(9, 2)
+
+    def grid_sizes(self, img_size: int | None = None) -> Tuple[int, ...]:
+        """Feature-grid side length per scale."""
+        side = self.img_size[0] if img_size is None else img_size
+        return tuple(side // s for s in self.strides)
+
+    def replace(self, **kw) -> "YoloConfig":
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT_CONFIG = YoloConfig()

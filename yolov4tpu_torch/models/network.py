@@ -1,0 +1,346 @@
+"""YOLOv4 network in PyTorch: parameter init, BN folding, folded forward.
+
+Counterpart of ``yolov4tpu.models.network``.  Parameters are plain
+dictionaries of tensors in conv-creation order — the serial order darknet
+``.weights`` files use:
+
+    params = {"convs": [{"w", "gamma", "beta"} | {"w", "b"}, ...]}
+    state  = {"bn": [{"mean", "var"} | None, ...]}
+
+Kernels are OIHW (PyTorch's layout; the JAX package keeps HWIO), so
+``params_from_jax`` transposes.  The public forward takes NHWC images and
+returns NHWC raw grids like the JAX package; inside, activations are NCHW
+tensors in ``channels_last`` memory format, which is the same bytes.
+
+Layer semantics (reference custom_layers.py:5-31):
+  - downsampling convs: top/left zero pad + stride-2 VALID conv;
+  - BatchNorm with Keras eps=1e-3, folded into conv weight + bias;
+  - mish via the single-exp identity, leaky-relu alpha=0.1.
+Only the BN-folded inference forward is ported; ``apply(train=True)`` comes
+with the training slice.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import topology
+
+BN_EPS = 1e-3  # Keras BatchNormalization default epsilon
+
+
+# ---------------------------------------------------------------------------
+# Conv layer spec (static metadata recorded at init, reused by the importer)
+# ---------------------------------------------------------------------------
+
+class ConvSpec:
+    """Static description of one conv layer, in darknet serial order."""
+
+    __slots__ = ("index", "in_ch", "filters", "kernel_size", "downsampling",
+                 "activation", "batch_norm")
+
+    def __init__(self, index, in_ch, filters, kernel_size, downsampling,
+                 activation, batch_norm):
+        self.index = index
+        self.in_ch = in_ch
+        self.filters = filters
+        self.kernel_size = kernel_size
+        self.downsampling = downsampling
+        self.activation = activation
+        self.batch_norm = batch_norm
+
+    def __repr__(self):
+        return (f"ConvSpec({self.index}: {self.in_ch}->{self.filters} "
+                f"k{self.kernel_size}{' s2' if self.downsampling else ''} "
+                f"{self.activation or 'linear'}{' bn' if self.batch_norm else ''})")
+
+
+# ---------------------------------------------------------------------------
+# Init: shape-trace the topology, creating params in call order
+# ---------------------------------------------------------------------------
+
+class _ShapeVal:
+    __slots__ = ("h", "w", "c")
+
+    def __init__(self, h, w, c):
+        self.h, self.w, self.c = h, w, c
+
+
+class _InitOps:
+    """Ops backend that traces shapes and materialises parameters.
+
+    Draws the same numpy ``default_rng`` stream, in the same HWIO shape, as
+    the JAX package's init, so ``init(seed)`` gives the same values there and
+    here (transposed to OIHW).
+    """
+
+    def __init__(self, rng: Optional[np.random.Generator]):
+        self.rng = rng  # None: record the specs only
+        self.specs: List[ConvSpec] = []
+        self.params: List[Dict[str, torch.Tensor]] = []
+        self.state: List[Optional[Dict[str, torch.Tensor]]] = []
+
+    def conv(self, x: _ShapeVal, filters: int, kernel_size: int,
+             downsampling: bool = False, activation: str = "leaky",
+             batch_norm: bool = True) -> _ShapeVal:
+        idx = len(self.specs)
+        self.specs.append(ConvSpec(idx, x.c, filters, kernel_size,
+                                   downsampling, activation, batch_norm))
+        if self.rng is not None:
+            self._materialise(x.c, filters, kernel_size, batch_norm)
+        if downsampling:
+            return _ShapeVal(x.h // 2, x.w // 2, filters)
+        return _ShapeVal(x.h, x.w, filters)
+
+    def _materialise(self, in_ch, filters, kernel_size, batch_norm):
+        w = self.rng.normal(0.0, 0.01,
+                            (kernel_size, kernel_size, in_ch, filters)
+                            ).astype(np.float32)
+        p = {"w": torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))}
+        if batch_norm:
+            p["gamma"] = torch.ones(filters)
+            p["beta"] = torch.zeros(filters)
+            self.state.append({"mean": torch.zeros(filters),
+                               "var": torch.ones(filters)})
+        else:
+            p["b"] = torch.zeros(filters)
+            self.state.append(None)
+        self.params.append(p)
+
+    def upsample(self, x: _ShapeVal) -> _ShapeVal:
+        return _ShapeVal(x.h * 2, x.w * 2, x.c)
+
+    def maxpool(self, x: _ShapeVal, pool: int) -> _ShapeVal:
+        return x  # stride-1 SAME pool: shape-preserving
+
+    def concat(self, xs: Sequence[_ShapeVal]) -> _ShapeVal:
+        return _ShapeVal(xs[0].h, xs[0].w, sum(v.c for v in xs))
+
+    def add(self, a: _ShapeVal, b: _ShapeVal) -> _ShapeVal:
+        return a
+
+
+def init(num_classes: int, img_size: int = 416, seed: int = 0,
+         csp_repeats=topology.DEFAULT_CSP_REPEATS):
+    """Create (params, state, conv_specs) for the full YOLOv4 network."""
+    ops = _InitOps(np.random.default_rng(seed))
+    topology.yolov4(ops, _ShapeVal(img_size, img_size, 3), num_classes,
+                    csp_repeats)
+    return {"convs": ops.params}, {"bn": ops.state}, ops.specs
+
+
+@functools.lru_cache(maxsize=8)
+def conv_specs(num_classes: int,
+               csp_repeats=topology.DEFAULT_CSP_REPEATS) -> Tuple[ConvSpec, ...]:
+    """Conv-layer inventory in darknet serial order (shape trace only)."""
+    ops = _InitOps(None)
+    topology.yolov4(ops, _ShapeVal(416, 416, 3), num_classes, csp_repeats)
+    return tuple(ops.specs)
+
+
+def params_from_jax(params, state):
+    """The JAX package's (params, state) pytrees, as numpy arrays, -> the
+    port's dictionaries of CPU float32 tensors (kernels HWIO -> OIHW)."""
+    def tensors(d):
+        return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in d.items()}
+
+    convs = []
+    for p in params["convs"]:
+        q = tensors(p)
+        q["w"] = q["w"].permute(3, 2, 0, 1).contiguous()
+        convs.append(q)
+    bn = [None if s is None else tensors(s) for s in state["bn"]]
+    return {"convs": convs}, {"bn": bn}
+
+
+# ---------------------------------------------------------------------------
+# BN folding and the folded (inference) forward
+# ---------------------------------------------------------------------------
+
+def _mish(x):
+    """mish(x) = x * tanh(softplus(x)) via the single-exp identity
+
+        tanh(softplus(x)) = (u^2 + 2u) / (u^2 + 2u + 2),  u = e^x,
+
+    with the exp clamped at 20 (above it mish(x) = x at f32 precision).  The
+    same arithmetic, in the same order, as the JAX package; ``F.mish``
+    differs from it by up to ~1.5e-4.
+    """
+    u = torch.exp(torch.clamp(x, max=20.0))
+    n = u * u + 2.0 * u
+    return torch.where(x > 20.0, x, x * (n / (n + 2.0)))
+
+
+def _activate(y, activation):
+    if activation == "mish":
+        return _mish(y)
+    if activation == "leaky":
+        return F.leaky_relu(y, negative_slope=0.1)
+    return y
+
+
+def fold_bn(params, state):
+    """Fold BN into conv weight + bias:
+    w' = w*g/sqrt(v+eps), b' = beta - m*g/sqrt(v+eps)."""
+    folded = []
+    for p, bn in zip(params["convs"], state["bn"]):
+        if bn is None:
+            folded.append({"w": p["w"], "b": p["b"]})
+        else:
+            scale = p["gamma"] * (1.0 / torch.sqrt(bn["var"] + BN_EPS))
+            folded.append({"w": p["w"] * scale[:, None, None, None],
+                           "b": p["beta"] - bn["mean"] * scale})
+    return {"convs": folded}
+
+
+def _s2d_stem_kernels(w1, b1, w2):
+    """Reindex the two stem convs into space-to-depth (2x2 block) space.
+
+    conv0 (3->32, 3x3 s1 SAME) and conv1 (32->64, 3x3 s2, top/left pad)
+    become conv1' (3x3 over the 12 s2d channels -> 4 phases x 32) and conv2'
+    (2x2 over those 128 -> 64, pad top/left), both stride 1 on the half-size
+    grid.  An exact reparametrisation: taps outside the original padding
+    land on zero kernel slots.  An output row r = 2i + p (block i, phase p)
+    taps input rows r + d - 1 for kernel row d, i.e. block row i + D - 1,
+    phase a, with D = (p + d + 1) // 2, a = (p + d + 1) % 2 (conv2' has
+    output phase 0).  s2d channel order: (a_row * 2 + a_col) * C + c.
+
+    Kernels are OIHW here: w1 (32, 3, 3, 3), w2 (64, 32, 3, 3).
+    """
+    c1, cin = w1.shape[0], w1.shape[1]
+    c2 = w2.shape[0]
+    w1p = w1.new_zeros((4 * c1, 4 * cin, 3, 3))
+    for pr in range(2):
+        for pc in range(2):
+            for di in range(3):
+                for dj in range(3):
+                    Dr, ar = (pr + di + 1) // 2, (pr + di + 1) % 2
+                    Dc, ac = (pc + dj + 1) // 2, (pc + dj + 1) % 2
+                    ci = (ar * 2 + ac) * cin
+                    co = (pr * 2 + pc) * c1
+                    w1p[co:co + c1, ci:ci + cin, Dr, Dc] = w1[:, :, di, dj]
+    b1p = b1.repeat(4)
+    w2p = w2.new_zeros((c2, 4 * c1, 2, 2))
+    for di in range(3):
+        for dj in range(3):
+            Dr, ar = (di + 1) // 2, (di + 1) % 2
+            Dc, ac = (dj + 1) // 2, (dj + 1) % 2
+            ci = (ar * 2 + ac) * c1
+            w2p[:, ci:ci + c1, Dr, Dc] = w2[:, :, di, dj]
+    return w1p, b1p, w2p
+
+
+def prepare_folded(folded, device, compute_dtype=torch.float32):
+    """Folded params on ``device`` in ``compute_dtype`` with channels_last
+    kernels, plus the s2d stem kernels (key ``"s2d"``), built once so the
+    forward does not rebuild them per call.  Casting once here equals the
+    per-conv cast of the JAX forward: both round the same f32 values."""
+    convs = [{"w": p["w"].to(device, compute_dtype).contiguous(
+                  memory_format=torch.channels_last),
+              "b": p["b"].to(device, compute_dtype)}
+             for p in folded["convs"]]
+    w1p, b1p, w2p = _s2d_stem_kernels(folded["convs"][0]["w"],
+                                      folded["convs"][0]["b"],
+                                      folded["convs"][1]["w"])
+    w1p, w2p = (t.to(device, compute_dtype).contiguous(
+        memory_format=torch.channels_last) for t in (w1p, w2p))
+    return {"convs": convs, "s2d": (w1p, b1p.to(device, compute_dtype), w2p)}
+
+
+def _bias(b, dtype):
+    """(C,) bias -> (1, C, 1, 1) for NCHW activations.  Added after the conv,
+    in the compute dtype, as the JAX forward does (not fused into the conv,
+    which would add it before the bf16 output rounding)."""
+    return b.to(dtype).view(1, -1, 1, 1)
+
+
+class _FoldedApplyOps:
+    """Ops backend over folded params (every conv is w+b, no BN) on NCHW
+    activations."""
+
+    def __init__(self, params, compute_dtype=torch.float32, s2d_stem=False):
+        self.params = params
+        self.convs = params["convs"]
+        self.dtype = compute_dtype
+        self.i = 0
+        self.s2d_stem = s2d_stem
+        self._skip_next = False
+
+    def _stem_pair_s2d(self, x, activation):
+        """Both stem convs in block space (see _s2d_stem_kernels)."""
+        if "s2d" in self.params:
+            w1p, b1p, w2p = self.params["s2d"]
+        else:
+            w1p, b1p, w2p = _s2d_stem_kernels(
+                self.convs[0]["w"], self.convs[0]["b"], self.convs[1]["w"])
+        b, c, h, w = x.shape
+        xb = x.permute(0, 2, 3, 1).reshape(b, h // 2, 2, w // 2, 2, c)
+        xb = xb.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+        xb = xb.permute(0, 3, 1, 2).to(self.dtype)
+        y = F.conv2d(xb, w1p.to(self.dtype), padding=1)
+        y = _activate(y + _bias(b1p, self.dtype), activation)
+        y = F.conv2d(F.pad(y, (1, 0, 1, 0)), w2p.to(self.dtype))
+        # conv1's own activation is applied by the (skipped) second conv()
+        # call, so any activation combination stays exact.
+        return y + _bias(self.convs[1]["b"], self.dtype)
+
+    def conv(self, x, filters, kernel_size, downsampling=False,
+             activation="leaky", batch_norm=True):
+        if (self.s2d_stem and self.i == 0 and kernel_size == 3
+                and not downsampling and x.shape[1] == 3
+                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
+            # Runs conv 0 (3->32 s1) AND conv 1 (32->64 s2 downsample): the
+            # next conv() call only applies conv 1's activation.
+            self.i = 2
+            self._skip_next = True
+            return self._stem_pair_s2d(x, activation)
+        if self._skip_next:
+            self._skip_next = False
+            if not (downsampling and kernel_size == 3):
+                raise ValueError("s2d stem expects the darknet downsample "
+                                 "conv right after the stem conv")
+            return _activate(x, activation)
+        p = self.convs[self.i]
+        self.i += 1
+        x = x.to(self.dtype)
+        if downsampling:
+            # Darknet-compatible top/left zero pad, then stride-2 VALID.
+            y = F.conv2d(F.pad(x, (1, 0, 1, 0)), p["w"].to(self.dtype),
+                         stride=2)
+        else:
+            y = F.conv2d(x, p["w"].to(self.dtype), padding=kernel_size // 2)
+        return _activate(y + _bias(p["b"], self.dtype), activation)
+
+    def upsample(self, x):
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+
+    def maxpool(self, x, pool: int):
+        # Stride-1 SAME max pool; max_pool2d pads with -inf.
+        return F.max_pool2d(x, pool, stride=1, padding=pool // 2)
+
+    def concat(self, xs):
+        return torch.cat(xs, dim=1)
+
+    def add(self, a, b):
+        return a + b
+
+
+def apply_folded(folded_params, images, num_classes: int,
+                 compute_dtype=torch.float32,
+                 csp_repeats=topology.DEFAULT_CSP_REPEATS,
+                 s2d_stem: bool = True):
+    """Inference forward over BN-folded params.
+
+    images (B, H, W, 3) NHWC -> [sbbox, mbbox, lbbox] raw grids, NHWC
+    float32 (B, H/s, W/s, 3*(5+C)).  Convs run in ``compute_dtype``, bias
+    added in it, outputs cast back to float32 (as the JAX package does).
+    """
+    ops = _FoldedApplyOps(folded_params, compute_dtype, s2d_stem=s2d_stem)
+    x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+    outs = topology.yolov4(ops, x, num_classes, csp_repeats)
+    return [o.permute(0, 2, 3, 1).float().contiguous() for o in outs]

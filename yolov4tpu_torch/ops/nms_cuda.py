@@ -1,0 +1,258 @@
+"""Candidate NMS with the hand-written CUDA suppression kernel.
+
+Counterpart of ``yolov4tpu.ops.nms_pallas`` (the fast path).  The pipeline:
+
+  torch: per-class rank matrices over the K candidates (stable sorts);
+  CUDA:  greedy suppression in each class's rank order with the per-class
+         cap inside the loop (csrc/suppress_rank.cu);
+  torch: global top-``max_total`` merge in candidate order.
+
+``suppress_rank`` launches the kernel on a CUDA tensor and runs its plain
+torch version, ``suppress_rank_reference``, on a CPU tensor; nothing else
+chooses between them.  The kernel is built with nvcc at first use, from the
+source in this package, into ``build/torch_kernels/`` at the root of the
+checkout, keyed by a hash of the source and flags so an edit rebuilds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .nms import _finish, top_k
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "suppress_rank.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_K = 1024  # one thread per candidate, one block per (class, image)
+
+# Launches of the CUDA kernel; chip_smoke.py reads it to show the main path
+# went through the kernel.
+LAUNCHES = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA suppression kernel is "
+                       "built from source at first use and needs the CUDA "
+                       "toolkit")
+
+
+def build() -> Path:
+    """Compile csrc/suppress_rank.cu into a shared library (once per source
+    hash) and return its path.  nvcc's ptxas report (registers, shared
+    memory, spills) is kept beside it in a ``.log`` file."""
+    digest = hashlib.sha256(_SRC.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"suppress_rank-{digest}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+                          capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+@functools.lru_cache(maxsize=1)
+def _library():
+    lib = ctypes.CDLL(str(build()))
+    fn = lib.suppress_rank_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(coords, scores, rank):
+    if coords.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError("coords and scores must be float32")
+    if rank.dtype != torch.int32:
+        raise TypeError("rank must be int32")
+    if coords.dim() != 3 or coords.shape[1] != 4:
+        raise ValueError(f"coords must be (B, 4, K), got {tuple(coords.shape)}")
+    b, _, k = coords.shape
+    if scores.dim() != 3 or scores.shape[0] != b or scores.shape[2] != k:
+        raise ValueError(f"scores must be (B, C, K) = ({b}, C, {k}), "
+                         f"got {tuple(scores.shape)}")
+    if rank.shape != scores.shape:
+        raise ValueError(f"rank must match scores' shape {tuple(scores.shape)}, "
+                         f"got {tuple(rank.shape)}")
+    if not (coords.device == scores.device == rank.device):
+        raise ValueError("coords, scores and rank must be on one device")
+
+
+def suppress_rank(coords, scores, rank, iou_threshold: float,
+                  score_threshold: float, max_per_class: int):
+    """Greedy per-class NMS in rank order with the per-class cap.
+
+    coords (B, 4, K) float32 corner planes (x1, y1, x2, y2; lo <= hi),
+    scores (B, C, K) float32, rank (B, C, K) int32 (per-class stable
+    descending-score positions) -> keep (B, C, K) float32 0/1.  Each rank
+    row must be a permutation of 0..K-1, as ``rank_inputs`` makes it: the
+    kernel indexes shared memory with it and does not check.
+
+    A CUDA tensor launches the kernel (and raises if the launch fails); a
+    CPU tensor runs ``suppress_rank_reference``.
+    """
+    global LAUNCHES
+    _check(coords, scores, rank)
+    if coords.device.type == "cpu":
+        return suppress_rank_reference(coords, scores, rank, iou_threshold,
+                                       score_threshold, max_per_class)
+    if coords.device.type != "cuda":
+        raise ValueError(f"suppress_rank runs on cuda or cpu tensors, "
+                         f"not {coords.device}")
+    b, c, k = scores.shape
+    if k > MAX_K:
+        raise ValueError(f"K={k} candidates exceeds the kernel's {MAX_K}")
+    coords, scores, rank = (t.contiguous() for t in (coords, scores, rank))
+    keep = torch.empty_like(scores)
+    if keep.numel() == 0:
+        return keep
+    launch = _library()
+    with torch.cuda.device(coords.device):
+        err = launch(coords.data_ptr(), scores.data_ptr(), rank.data_ptr(),
+                     keep.data_ptr(), b, c, k, float(iou_threshold),
+                     float(score_threshold), int(max_per_class),
+                     torch.cuda.current_stream(coords.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"suppress_rank kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES += 1
+    return keep
+
+
+def suppress_rank_reference(coords, scores, rank, iou_threshold: float,
+                            score_threshold: float, max_per_class: int):
+    """Plain-torch version of the kernel, vectorised over (B, C).
+
+    Mirrors the Pallas body (nms_pallas.py:208-250) line by line, with the
+    pivot taken by index (through perm, the inverse of rank) instead of a
+    masked sum: equal for finite coordinates.  Loops to the longest valid
+    prefix over the whole batch; past a class's own valid count a step
+    changes nothing (the pivot was never alive).
+    """
+    # Thresholds rounded to float32 first, as the JAX and CUDA versions
+    # compare against float32 thresholds.
+    iou_t = float(np.float32(iou_threshold))
+    score_t = float(np.float32(score_threshold))
+    x1, y1, x2, y2 = (coords[:, j:j + 1] for j in range(4))    # (B, 1, K)
+    area = (x2 - x1) * (y2 - y1)                               # (B, 1, K)
+    valid = scores > score_t
+    alive = valid.to(torch.float32)                            # (B, C, K)
+    count = torch.zeros(scores.shape[:2] + (1,), device=scores.device)
+    perm = torch.argsort(rank.long(), dim=-1)                  # rank -> cand
+    nmax = int(valid.sum(dim=-1).max()) if valid.numel() else 0
+
+    def pivot(plane, i):
+        return torch.gather(plane.expand_as(scores), 2, perm[..., i:i + 1])
+
+    for i in range(nmax):
+        px1, py1, px2, py2 = (pivot(p, i) for p in (x1, y1, x2, y2))
+        parea = pivot(area, i)
+        palive = torch.gather(alive, 2, perm[..., i:i + 1])     # (B, C, 1)
+
+        # Per-class cap: pivots beyond max_per_class survivors are dropped.
+        newcount = count + palive
+        over = (newcount > max_per_class).to(torch.float32) * palive
+        palive = palive - over
+        count = newcount - over
+        alive = alive.scatter(2, perm[..., i:i + 1],
+                              torch.gather(alive, 2, perm[..., i:i + 1]) - over)
+
+        iw = torch.clamp(torch.minimum(px2, x2) - torch.maximum(px1, x1), min=0.0)
+        ih = torch.clamp(torch.minimum(py2, y2) - torch.maximum(py1, y1), min=0.0)
+        inter = iw * ih
+        union = parea + area - inter
+        iou = torch.where(union > 0.0, inter / union, torch.zeros_like(inter))
+
+        suppress = (iou > iou_t) & (rank > i) & (palive > 0.5)
+        alive = torch.where(suppress, torch.zeros_like(alive), alive)
+    return alive
+
+
+def rank_inputs(cand_boxes, cand_scores):
+    """(B, K, 4) candidate boxes and (B, K, C) scores -> the kernel's inputs:
+    corner planes (B, 4, K), class scores (B, C, K), per-class ranks (B, C, K)
+    from stable descending sorts (``lax.sort_key_val`` on -score)."""
+    sc = cand_scores.transpose(1, 2).contiguous()               # (B, C, K)
+    perm = torch.sort(sc, dim=-1, descending=True, stable=True)[1]
+    iota = torch.arange(sc.shape[-1], dtype=torch.int32,
+                        device=sc.device).expand_as(sc)
+    rank = torch.empty_like(iota).scatter_(-1, perm, iota)      # cand -> rank
+    lo = torch.minimum(cand_boxes[..., :2], cand_boxes[..., 2:])
+    hi = torch.maximum(cand_boxes[..., :2], cand_boxes[..., 2:])
+    coords = torch.stack([lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1]],
+                         dim=1).contiguous()                    # (B, 4, K)
+    return coords, sc, rank
+
+
+def merge(keep, sc, cand_boxes, max_total: int, clip: bool):
+    """Global top-``max_total`` merge over the kept (class, candidate) pairs
+    -> the combined-NMS output tuple."""
+    bsz, _, k = sc.shape
+    flat_scores = torch.where(keep > 0.5, sc,
+                              torch.full_like(sc, -1.0)).reshape(bsz, -1)
+    t = min(max_total, flat_scores.shape[1])
+    sel_scores, sel_idx = top_k(flat_scores, t)                 # (B, T)
+    sel_classes = torch.div(sel_idx, k, rounding_mode="floor").float()
+    sel_boxes = torch.gather(cand_boxes, 1,
+                             (sel_idx % k)[..., None].expand(bsz, t, 4))
+    return _finish(sel_boxes, sel_scores, sel_classes, max_total, clip)
+
+
+def nms_from_candidates(cand_boxes, cand_scores, iou_threshold: float,
+                        score_threshold: float, max_per_class: int,
+                        max_total: int, clip: bool = True):
+    """Combined NMS over an already-reduced candidate set.
+
+    cand_boxes (B, K, 4) corner format, cand_scores (B, K, C) -> the
+    combined-NMS output tuple.  Shared tail of ``combined_nms_fast`` and the
+    fused detection path (``ops.detect``).
+    """
+    coords, sc, rank = rank_inputs(cand_boxes, cand_scores)
+    keep = suppress_rank(coords, sc, rank, iou_threshold, score_threshold,
+                         max_per_class)
+    return merge(keep, sc, cand_boxes, max_total, clip)
+
+
+def combined_nms_fast(boxes, scores, iou_threshold: float = 0.413,
+                      score_threshold: float = 0.3, max_per_class: int = 100,
+                      max_total: int = 100, candidates: int = 256,
+                      clip: bool = True):
+    """Combined NMS with global candidate reduction (the production path).
+
+    Selects the top ``candidates`` boxes once by best-class score, then runs
+    the per-class suppression over those only.  Equal to ``combined_nms``
+    whenever at most ``candidates`` boxes clear the score threshold on
+    their best class.  boxes (B, N, 4), scores (B, N, C).
+    """
+    bsz, n, num_classes = scores.shape
+    k = min(candidates, n)
+    _, cand_idx = top_k(scores.max(dim=-1).values, k)           # (B, K)
+    cand_boxes = torch.gather(boxes, 1, cand_idx[..., None].expand(bsz, k, 4))
+    cand_scores = torch.gather(
+        scores, 1, cand_idx[..., None].expand(bsz, k, num_classes))
+    return nms_from_candidates(cand_boxes, cand_scores, iou_threshold,
+                               score_threshold, max_per_class, max_total, clip)
