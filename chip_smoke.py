@@ -18,7 +18,24 @@ exits non-zero without printing a result:
      NMS tail equals the plain tail on the same raw grids, float32 on the
      card (TF32 off) matches the port on the CPU within 1e-3 per box,
      ``predict()`` on a written JPEG returns a DataFrame, and the bfloat16
-     throughput at batch 8 and 64.
+     throughput at batch 8 and 64;
+  4. the weight-gradient kernel against its plain version at the nine
+     shapes of the 37 3x3 stride-1 convs of the training path at 416^2, b8,
+     in float32 and bfloat16, plus a delta input (exactly equal) and a
+     ragged shape; its times beside its bound, its plain version and
+     cuDNN's wgrad (``torch.nn.grad.conv2d_weight``, a yardstick the port
+     never calls);
+  5. the training path through the user's entry points: ``Yolov4`` with
+     ``pallas_wgrad=True`` in bfloat16 at full depth, 416x416, COCO-80,
+     random darknet weights from a seed, ``fit`` for 2 epochs over a
+     ``DataGenerator`` of 16 JPEGs the script writes (b8).  The kernel's
+     launch count is zeroed just before and read just after (37 per step).
+     Then: ``predict_batch`` on the trained weights, the loss falling over
+     10 steps on one batch, the device label encoder's first loss equal to
+     the host encoder's, float32 gradients with the kernel against cuDNN's
+     wgrad on the card and against the port on the CPU (b2), and the train
+     step's time split and img/s at b8 and b32, with and without the
+     kernel.
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -28,6 +45,9 @@ with status 1 at once.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -45,6 +65,7 @@ CLASSES = ROOT / "class_names" / "coco_classes.txt"
 # float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12   # dense, tensor cores
 # float32 operations of one IoU test against a pivot: 2 min, 2 max, 2 sub,
 # 2 clamps, the product, the union's add and sub, the divide, the compare.
 IOU_OPS = 13
@@ -198,7 +219,7 @@ def nms_inputs(torch, nms_cuda, model, images):
                                  cfg.score_threshold, cfg.max_boxes)
 
 
-def time_stages(torch, nms_cuda, model, imgs_u8, label):
+def time_stages(torch, nms_cuda, model, imgs_u8, label, card):
     """Each stage of predict_batch timed alone on the main path's inputs
     (CUDA events around repeated calls; eager stages include their host
     time), and the kernel against its plain version and its bound."""
@@ -235,9 +256,9 @@ def time_stages(torch, nms_cuda, model, imgs_u8, label):
     log(f"suppress_rank {label}: shape {tuple(sc.shape)}, valid per class "
         f"max {int(nvalid.max())} mean {float(nvalid.float().mean()):.2f}: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.6f} ms "
-        f"({bound_by})")
+        f"({bound_by}) ({card})")
     log(f"stages {label} (ms): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in stages.items()))
+        f"{k} {v:.4f}" for k, v in stages.items()) + f" ({card})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 max_abs_err=err)
 
@@ -254,6 +275,406 @@ def predict_rate(torch, model, imgs_u8, iters: int = 10) -> float:
     torch.cuda.synchronize()
     return iters * len(imgs_u8) / (time.perf_counter() - t0)
 
+# ---------------------------------------------------------------------------
+# The weight-gradient kernel and the training path
+# ---------------------------------------------------------------------------
+
+# The kernel and its plain version both sum B*H*W float32 products per
+# entry, in different orders: the kernel in chains of at most one split's
+# pixels (a few thousand), the plain version through a float32 matmul.  The
+# rounding of such sums is ~sqrt(chain) * 2^-24 of the magnitudes summed,
+# below 1e-5 of the largest |entry| at these shapes; 1e-4 leaves a margin
+# of ten and still fails any wrong tap, shift or edge by orders of
+# magnitude.  bfloat16 operands are widened exactly, so the same holds.
+WGRAD_TOL = 1e-4
+# Float32 training, card vs the port on the CPU: the training forward's
+# one-pass BatchNorm moments (E[y^2] - E[y]^2 in float32, over up to
+# 346,112 values a channel at 416^2, b2) make the loss and the gradients
+# sensitive to summation order, which differs between the card and the CPU
+# at every conv and every moment (the CPU tests measure up to 13% rel-RMS
+# at 64 px when the JAX package's own inputs move by one ulp).  Measured
+# here on the first runs: loss 9.4e-5 rel, gradients up to 6.9% rel-RMS
+# (median 5.2%), while the card's own gradients move by up to 10% (median
+# 7.8%) when the images move by a relative 1e-6.  So: the loss within 2e-4;
+# the median and the largest gradient leaf error within twice the card's
+# own median and largest movement, measured in the same run; and the three
+# head convs, which no BatchNorm follows, within 1e-3 rel-RMS.
+CPU_LOSS_TOL = 2e-4
+HEAD_GRAD_TOL = 1e-3
+NOISE_EPS = 1e-6
+
+
+def wgrad_shapes(side: int = 416, num_classes: int = 80, csp_repeats=None):
+    """Counter of (H, Ci, Co) over the 3x3 stride-1 convs of the training
+    forward (the convs pallas_wgrad routes through the kernel)."""
+    from yolov4tpu_torch.models import network, topology
+
+    class Trace(network._InitOps):
+        def __init__(self):
+            super().__init__(None)
+            self.s1 = collections.Counter()
+
+        def conv(self, x, filters, kernel_size, downsampling=False,
+                 activation="leaky", batch_norm=True):
+            if kernel_size == 3 and not downsampling:
+                self.s1[(x.h, x.c, filters)] += 1
+            return super().conv(x, filters, kernel_size, downsampling,
+                                activation, batch_norm)
+
+    trace = Trace()
+    topology.yolov4(trace, network._ShapeVal(side, side, 3), num_classes,
+                    csp_repeats or topology.DEFAULT_CSP_REPEATS)
+    return trace.s1
+
+
+def wgrad_bound_ms(b, h, w, ci, co, itemsize):
+    """The least time for one wgrad: x and dy read once and the float32
+    (3,3,Ci,Co) result written once at the HBM rate, or its 2*9*K*Ci*Co
+    operations at the peak for the operand type (bf16 tensor cores, or
+    float32 outside them), whichever is larger."""
+    ops = 2 * 9 * b * h * w * ci * co
+    nbytes = b * h * w * (ci + co) * itemsize + 9 * ci * co * 4
+    peak = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def wgrad_pair(torch, gen, b, h, w, ci, co, dtype):
+    """x (B,H,W,Ci) and dy (B,H,W,Co) normal(0, 1) on the card."""
+    x = torch.randn((b, h, w, ci), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((b, h, w, co), generator=gen, device="cuda").to(dtype)
+    return x, dy
+
+
+def wgrad_check(torch, wgrad_cuda, x, dy, label, exact=False):
+    """The kernel against its plain version on the same tensors: returns
+    (max abs error, that error over the largest |entry|)."""
+    got = wgrad_cuda.wgrad_3x3_s1(x, dy)
+    torch.cuda.synchronize()
+    want = wgrad_cuda.wgrad_3x3_s1_reference(x, dy)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if exact:
+        check(torch.equal(got, want), f"wgrad {label}: kernel != plain "
+              f"(max abs err {err})")
+    else:
+        check(err <= WGRAD_TOL * scale, f"wgrad {label}: max abs err {err} "
+              f"> {WGRAD_TOL} x {scale}")
+    return err, err / max(scale, 1e-30)
+
+
+def wgrad_phase(torch, wgrad_cuda, shapes):
+    """Phase 4a: the kernel against its plain version at the training
+    path's shapes (b8, float32 and bfloat16), a delta input and a ragged
+    shape.  Returns the largest abs error at the main path's b8 bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst_bf16 = 0.0
+    for (h, ci, co), n in sorted(shapes.items(), key=lambda kv: -kv[0][0]):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = wgrad_pair(torch, gen, 8, h, h, ci, co, dtype)
+            err, rel = wgrad_check(torch, wgrad_cuda, x, dy,
+                                   f"{h}^2 {ci}->{co} {dtype}")
+            if dtype == torch.bfloat16:
+                worst_bf16 = max(worst_bf16, err)
+            log(f"wgrad kernel vs plain: b8 {h}x{h} {ci}->{co} "
+                f"({n} convs) {str(dtype)[6:]}: max abs err {err:.3g} "
+                f"({rel:.2g} of the largest entry, limit {WGRAD_TOL})")
+    for corner in ((0, 0), (12, 12), (0, 12)):
+        x = torch.zeros((1, 13, 13, 8), device="cuda")
+        dy = torch.zeros((1, 13, 13, 8), device="cuda")
+        x[0, corner[0], corner[1], 0] = 1.0
+        dy[0, corner[0], corner[1], 0] = 1.0
+        wgrad_check(torch, wgrad_cuda, x, dy, f"delta {corner}", exact=True)
+        got = wgrad_cuda.wgrad_3x3_s1(x, dy)
+        check(float(got[1, 1, 0, 0]) == 1.0 and float(got.abs().sum()) == 1.0,
+              f"delta {corner}: an edge tap did not see zero padding")
+    log("wgrad kernel vs plain: delta inputs at three corners of 13x13: "
+        "exactly equal, only the centre tap set")
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy = wgrad_pair(torch, gen, 3, 13, 17, 96, 80, dtype)
+        err, rel = wgrad_check(torch, wgrad_cuda, x, dy, f"ragged {dtype}")
+        log(f"wgrad kernel vs plain: ragged B=3 13x17 96->80 "
+            f"{str(dtype)[6:]}: max abs err {err:.3g} ({rel:.2g})")
+    return worst_bf16
+
+
+def wgrad_times(torch, wgrad_cuda, shapes, card):
+    """Phase 4b: per shape at b8 bf16, the kernel, its plain version and
+    cuDNN's wgrad (library yardstick) against the bound; and the sums over
+    one training step's launches."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step = collections.Counter()
+    bound_by = {"operations": 0.0, "bytes": 0.0}
+    for (h, ci, co), n in sorted(shapes.items(), key=lambda kv: -kv[0][0]):
+        x, dy = wgrad_pair(torch, gen, 8, h, h, ci, co, torch.bfloat16)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        ms = cuda_ms(lambda: wgrad_cuda.wgrad_3x3_s1(x, dy), n=5)
+        plain = cuda_ms(lambda: wgrad_cuda.wgrad_3x3_s1_reference(x, dy),
+                        n=1, repeats=3, warmup=1)
+        lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+            xn, (co, ci, 3, 3), dyn, padding=1), n=5)
+        bound, by = wgrad_bound_ms(8, h, h, ci, co, 2)
+        tile, splits, chunk = wgrad_cuda.plan(
+            8, h, h, ci, co,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        log(f"wgrad b8 bf16 {h}x{h} {ci}->{co} x{n}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, cuDNN {lib:.4f} ms, bound {bound:.5f} ms "
+            f"({by}); kernel at {bound / ms:.2%} of bound, "
+            f"{2 * 9 * 8 * h * h * ci * co / ms / 1e9:.1f} TFLOP/s; tile "
+            f"{tile}, {splits} splits of {chunk} px ({card})")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bound)):
+            step[key] += n * v
+        bound_by[by] += n * bound
+    step["launches"] = sum(shapes.values())
+    by = max(bound_by, key=bound_by.get)
+    log(f"wgrad per b8 bf16 step ({step['launches']} launches): kernel "
+        f"{step['ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, cuDNN "
+        f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.4f} ms "
+        f"({by}) ({card})")
+    return dict(step, bound_by=by)
+
+
+def write_train_set(folder: pathlib.Path, n: int = 16, seed: int = 0):
+    """n JPEGs (scene rasters at a few sizes) with 2-8 boxes each and their
+    annotation file, lines "name x1,y1,x2,y2,class ..." -> its lines."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    folder.mkdir(parents=True, exist_ok=True)
+    lines = []
+    for i in range(n):
+        h, w = (480, 640) if i % 2 else (416, 500)
+        img = cv2.resize(scene(seed * 100 + i, 1)[0], (w, h))
+        cv2.imwrite(str(folder / f"train{i}.jpg"), img)
+        boxes = []
+        for _ in range(int(rng.integers(2, 9))):
+            x1, y1 = int(rng.integers(0, w - 40)), int(rng.integers(0, h - 40))
+            x2 = int(rng.integers(x1 + 16, min(x1 + 300, w)))
+            y2 = int(rng.integers(y1 + 16, min(y1 + 300, h)))
+            boxes.append(f"{x1},{y1},{x2},{y2},{int(rng.integers(0, 80))}")
+        lines.append(f"train{i}.jpg " + " ".join(boxes))
+    anno = folder / "annotations.txt"
+    anno.write_text("\n".join(lines) + "\n")
+    return anno.read_text().splitlines()
+
+
+def grad_rel_rms(got, want):
+    """Per conv leaf (in order) the rel-RMS of got against want."""
+    out = []
+    for p, q in zip(got["convs"], want["convs"]):
+        for k in p:
+            a, b = p[k].double().cpu(), q[k].double().cpu()
+            out.append(float((a - b).pow(2).mean().sqrt()
+                             / b.pow(2).mean().sqrt().clamp_min(1e-30)))
+    return out
+
+
+def train_phase(torch, wgrad_cuda, wpath, folder, lines, card, shapes):
+    """Phase 5: the training path through the entry points, then its
+    checks.  Returns the kernel's launches in the main-path fit."""
+    from yolov4tpu_torch import train
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, pallas_wgrad=True,
+                              compute_dtype="bfloat16")
+    gen = DataGenerator(lines, str(CLASSES), str(folder), config=cfg, seed=0)
+    model = Yolov4(weight_path=str(wpath), class_name_path=str(CLASSES),
+                   config=cfg)
+    params0, state0 = model.params, model.state   # fit swaps in new dicts
+    per_step = sum(shapes.values())
+
+    wgrad_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    history = model.fit(gen, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    launches = wgrad_cuda.LAUNCHES
+    fit_s = time.perf_counter() - t0
+    trainer = model.trainer()
+    steps = trainer.global_step
+    check(steps == 2 * len(gen), f"fit ran {steps} steps, not {2 * len(gen)}")
+    check(launches == per_step * steps, f"wgrad launched {launches} times in "
+          f"{steps} steps, not {per_step} per step")
+    check(all(np.isfinite(h["loss"]) for h in history),
+          f"non-finite loss in {history}")
+    check(trainer.params["convs"][0]["w"].is_cuda, "params are not on the card")
+    log(f"main path (training): fit 2 epochs x {len(gen)} steps at b8 bf16, "
+        f"pallas_wgrad: wgrad launched {launches} times ({per_step} per "
+        f"step), epoch losses {[round(h['loss'], 3) for h in history]}, "
+        f"{fit_s:.1f} s with JPEG decode and the first steps' set-up "
+        f"({card})")
+
+    u8 = scene(3, 8)
+    boxes, scores, classes, valid = model.predict_batch(u8)
+    check(boxes.is_cuda and tuple(boxes.shape) == (8, 100, 4),
+          "predict_batch after fit")
+    check(all(bool(torch.isfinite(o.float()).all())
+              for o in (boxes, scores, classes, valid)),
+          "non-finite detections after fit")
+    log(f"predict_batch on the trained weights: finite, valid detections "
+        f"{valid.tolist()}")
+
+    batch = gen.get_batch(0)
+    losses = [float(trainer.train_step(batch)["loss"]) for _ in range(10)]
+    check(all(np.isfinite(losses)), f"non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall over 10 steps on one "
+          f"batch: {losses}")
+    log(f"10 steps on one batch: loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    dev_cfg = dataclasses.replace(cfg, encode_on_device=True)
+    firsts = []
+    for c in (cfg, dev_cfg):
+        g = DataGenerator(lines, str(CLASSES), str(folder), config=c, seed=5)
+        t = train.Trainer(c, 80, params0, state0)
+        firsts.append(float(t.train_step(g.get_batch(0))["loss"]))
+        del t
+    check(abs(firsts[1] - firsts[0]) <= 1e-6 * abs(firsts[0]),
+          f"device-encoded first loss {firsts[1]} != host-encoded "
+          f"{firsts[0]}")
+    log(f"encode_on_device: first-step loss {firsts[1]!r} == host-encoded "
+        f"{firsts[0]!r}")
+    torch.cuda.empty_cache()
+    return launches, params0, state0
+
+
+def fidelity_phase(torch, params0, state0, folder, lines, card):
+    """Phase 5b: float32 (TF32 off) gradients at full depth, b2: the kernel
+    against cuDNN's wgrad on the card, and the card against the CPU."""
+    from yolov4tpu_torch import train
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+
+    cfg = dataclasses.replace(DEFAULT_CONFIG, pallas_wgrad=True, batch_size=2)
+    batch = train.tree_map(torch.as_tensor, DataGenerator(
+        lines, str(CLASSES), str(folder), config=cfg, seed=7).get_batch(0))
+
+    def run(c, device, b=batch):
+        on = train.tree_map(lambda t: t.to(device), (params0, state0, b))
+        out = train._make_grad_and_metrics(80, c)(*on)
+        return train.tree_map(lambda t: t.detach().cpu(), out)
+
+    g_k, st_k, m_k = run(cfg, "cuda")
+    g_c, st_c, m_c = run(dataclasses.replace(cfg, pallas_wgrad=False), "cuda")
+    loss_k, loss_c = float(m_k["loss"]), float(m_c["loss"])
+    check(abs(loss_k - loss_c) <= 1e-6 * abs(loss_c),
+          f"f32 loss with the kernel {loss_k} != with cuDNN wgrad {loss_c}")
+    for a, b in zip(st_k["bn"], st_c["bn"]):
+        if a is not None:
+            for k in ("mean", "var"):
+                check(torch.allclose(a[k], b[k], rtol=1e-6, atol=0),
+                      "BN state differs between the kernel and cuDNN wgrad")
+    rel = grad_rel_rms(g_k, g_c)
+    check(max(rel) < 1e-4, f"f32 gradient leaf off by rel-RMS {max(rel)} "
+          "(limit 1e-4), kernel vs cuDNN wgrad")
+    log(f"fidelity f32 b2 416^2: kernel vs cuDNN wgrad on the card: loss "
+        f"{loss_k!r} vs {loss_c!r}, BN state equal, gradient rel-RMS max "
+        f"{max(rel):.3g} median {statistics.median(rel):.3g} (limit 1e-4)")
+
+    t0 = time.perf_counter()
+    g_cpu, _, m_cpu = run(cfg, "cpu")
+    cpu_s = time.perf_counter() - t0
+    noise = torch.Generator().manual_seed(11)
+    image = batch["image"]
+    moved = dict(batch, image=image * (1 + NOISE_EPS * torch.randn(
+        image.shape, generator=noise)))
+    g_p, _, m_p = run(cfg, "cuda", moved)
+    loss_cpu, loss_p = float(m_cpu["loss"]), float(m_p["loss"])
+    rel, own = grad_rel_rms(g_k, g_cpu), grad_rel_rms(g_p, g_k)
+    loss_rel = abs(loss_k - loss_cpu) / abs(loss_cpu)
+    heads = [r for r, p in zip(rel, (p for p in params0["convs"] for _ in p))
+             if "b" in p]
+    med, med_own = statistics.median(rel), statistics.median(own)
+    log(f"fidelity f32 b2 416^2: card vs the port on the CPU: loss "
+        f"{loss_k!r} vs {loss_cpu!r} (rel {loss_rel:.3g}, limit "
+        f"{CPU_LOSS_TOL}; the card's own loss moves by rel "
+        f"{abs(loss_p - loss_k) / abs(loss_k):.3g}); gradient rel-RMS max "
+        f"{max(rel):.3g} median {med:.3g}, the card's own movement under a "
+        f"{NOISE_EPS} relative image perturbation max {max(own):.3g} median "
+        f"{med_own:.3g}; head convs max {max(heads):.3g} (limit "
+        f"{HEAD_GRAD_TOL}); the CPU's step took {cpu_s:.1f} s on the host")
+    check(loss_rel <= CPU_LOSS_TOL, f"f32 loss on the card {loss_k} vs the "
+          f"CPU {loss_cpu}: rel {loss_rel} > {CPU_LOSS_TOL}")
+    check(med <= 2 * med_own and max(rel) <= 2 * max(own),
+          f"f32 gradients card vs CPU (median {med}, max {max(rel)}) beyond "
+          f"twice the card's own movement ({med_own}, {max(own)})")
+    check(len(heads) == 6 and max(heads) <= HEAD_GRAD_TOL,
+          f"head conv gradients card vs CPU off by {max(heads)}")
+
+
+def step_split(torch, trainer, batch):
+    """One train step at the trainer's config split by CUDA events into
+    forward+loss, backward and optimizer (ms)."""
+    from yolov4tpu_torch import losses, train
+    from yolov4tpu_torch.models import network
+    cfg = trainer.config
+    batch = trainer._place(train.tree_map(torch.as_tensor, batch))
+    images = batch["image"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    live = [t.detach().requires_grad_(True)
+            for t in train.leaves(trainer.params)]
+    ev[0].record()
+    outs, _ = network.apply(
+        train.unflatten(trainer.params, live), trainer.state, images, 80,
+        train=True, compute_dtype=train._compute_dtype(cfg),
+        pallas_wgrad=cfg.pallas_wgrad)
+    total = losses.yolo_loss(outs, batch["labels"], batch["boxes"],
+                             cfg.anchors_grouped, cfg.strides, 80,
+                             cfg.iou_loss_thresh)
+    ev[1].record()
+    grads = torch.autograd.grad(total, live)
+    ev[2].record()
+    trainer.optimizer.step(grads)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def rate_phase(torch, params0, state0, folder, lines, card):
+    """Phase 5c: train-step img/s at bf16 b8 and b32 with and without the
+    kernel (host clock around steps that end in a synchronize, batches
+    already on the card), and the time split of one step."""
+    from yolov4tpu_torch import train
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+
+    base = dataclasses.replace(DEFAULT_CONFIG, compute_dtype="bfloat16")
+    b8 = DataGenerator(lines, str(CLASSES), str(folder), config=base,
+                       seed=9).get_batch(0)
+    rates = {}
+    for bsz in (8, 32):
+        batch = train.tree_map(
+            lambda x: np.concatenate([x] * (bsz // 8)), b8)
+        for flag in (True, False):
+            cfg = dataclasses.replace(base, pallas_wgrad=flag,
+                                      batch_size=bsz)
+            trainer = train.Trainer(cfg, 80, params0, state0)
+            dev = trainer._place(train.tree_map(torch.as_tensor, batch))
+            for _ in range(2):
+                trainer.train_step(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            iters = 5
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                trainer.train_step(dev)
+            torch.cuda.synchronize()
+            rate = iters * bsz / (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            split = step_split(torch, trainer, batch)
+            rates[(bsz, flag)] = rate
+            log(f"train step bf16 b{bsz} pallas_wgrad={flag}: {rate:.1f} "
+                f"img/s ({1e3 * bsz / rate:.1f} ms a step); split "
+                f"forward+loss {split[0]:.1f} ms, backward {split[1]:.1f} ms,"
+                f" optimizer {split[2]:.1f} ms; peak memory {peak:.1f} GiB "
+                f"({card})")
+            del trainer, dev
+            torch.cuda.empty_cache()
+    return rates
+
+
 
 def main() -> int:
     import torch
@@ -268,7 +689,7 @@ def main() -> int:
     from yolov4tpu_torch import weights
     from yolov4tpu_torch.api import Yolov4
     from yolov4tpu_torch.config import DEFAULT_CONFIG
-    from yolov4tpu_torch.ops import nms_cuda
+    from yolov4tpu_torch.ops import build, nms_cuda, wgrad_cuda
 
     # Every float32 comparison below runs in full float32: cuDNN would
     # otherwise run float32 convolutions in TF32.
@@ -284,11 +705,13 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    so = nms_cuda.build()
-    log(f"built {so.name} in {time.perf_counter() - t0:.1f} s")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
+        sos = list(pool.map(build.build, ("suppress_rank", "wgrad_3x3")))
+    log(f"built {', '.join(so.name for so in sos)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for so in sos:
+        for line in build.ptxas_report(so):
+            log(f"  ptxas {so.name.split('-')[0]}: {line}")
 
     # --- 2. kernel vs plain version --------------------------------------
     worst = kernel_phase(torch, nms_cuda)
@@ -373,13 +796,30 @@ def main() -> int:
     log(f"predict({jpg.name}): DataFrame of {len(df)} rows")
 
     # Times: the kernel at the main path's shapes, and throughput.
-    k8 = time_stages(torch, nms_cuda, m32, u8, "b8 f32")
-    time_stages(torch, nms_cuda, m16, u8, "b8 bf16")
+    k8 = time_stages(torch, nms_cuda, m32, u8, "b8 f32", card)
+    time_stages(torch, nms_cuda, m16, u8, "b8 bf16", card)
     u64 = scene(2, 64)
-    time_stages(torch, nms_cuda, m16, u64, "b64 bf16")
+    time_stages(torch, nms_cuda, m16, u64, "b64 bf16", card)
     for bsz, imgs in ((8, u8), (64, u64)):
         rate = predict_rate(torch, m16, imgs)
         log(f"predict_batch bf16 b{bsz} uint8: {rate:.1f} img/s ({card})")
+
+    # --- 4. the weight-gradient kernel ----------------------------------
+    shapes = wgrad_shapes()
+    check(sum(shapes.values()) == 37 and len(shapes) == 9,
+          f"expected 37 3x3 stride-1 convs in 9 shapes, got {dict(shapes)}")
+    del m16, outs
+    torch.cuda.empty_cache()
+    wgrad_err = wgrad_phase(torch, wgrad_cuda, shapes)
+    wg = wgrad_times(torch, wgrad_cuda, shapes, card)
+
+    # --- 5. the training path --------------------------------------------
+    folder = SCRATCH / "train"
+    lines = write_train_set(folder)
+    wlaunches, params0, state0 = train_phase(torch, wgrad_cuda, wpath,
+                                             folder, lines, card, shapes)
+    fidelity_phase(torch, params0, state0, folder, lines, card)
+    rate_phase(torch, params0, state0, folder, lines, card)
 
     kernels = [{"name": "suppress_rank", "route": "cuda",
                 "source": "yolov4tpu_torch/csrc/suppress_rank.cu",
@@ -387,7 +827,14 @@ def main() -> int:
                 "launches": launches, "max_abs_err": worst,
                 "ms": k8["ms"], "plain_ms": k8["plain_ms"],
                 "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
-                "library_ms": None}]
+                "library_ms": None},
+               {"name": "wgrad_3x3", "route": "cuda",
+                "source": "yolov4tpu_torch/csrc/wgrad_3x3.cu",
+                "replaces": "yolov4tpu/ops/wgrad_pallas.py:48",
+                "launches": wlaunches, "max_abs_err": wgrad_err,
+                "ms": wg["ms"], "plain_ms": wg["plain_ms"],
+                "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"],
+                "library_ms": wg["library_ms"]}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

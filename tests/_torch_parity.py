@@ -116,3 +116,74 @@ def assert_detections_equal(got, want, box_atol: float, score_atol: float):
     np.testing.assert_array_equal(got[2], want[2])
     np.testing.assert_allclose(got[1], want[1], rtol=0, atol=score_atol)
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=box_atol)
+
+
+def train_batch(seed: int, batch: int, num_classes: int, img: int = IMG,
+                n_boxes: int = 4):
+    """A host-encoded training batch (numpy, JAX layout): images in [0, 1],
+    the three label grids and the xywh boxes, from ``n_boxes`` random boxes
+    per image."""
+    from yolov4tpu.config import YoloConfig
+    from yolov4tpu.data.encode import preprocess_true_boxes
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((batch, 100, 5), np.float32)
+    for b in range(batch):
+        for j in range(n_boxes):
+            x1, y1 = rng.uniform(0, img * 0.6, 2)
+            w, h = rng.uniform(img / 8, img * 0.4, 2)
+            boxes[b, j] = [x1, y1, x1 + w, y1 + h, rng.integers(num_classes)]
+    boxes[..., :4] = np.floor(boxes[..., :4])
+    labels, xywh = preprocess_true_boxes(
+        boxes, (img, img), YoloConfig().anchors_flat, num_classes)
+    return {"image": images(seed, batch, img).astype(np.float32) / 255.0,
+            "labels": labels, "boxes": xywh}, boxes
+
+
+def to_torch(tree):
+    """numpy leaves (dicts and lists) -> CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_torch(v) for v in tree]
+    return None if tree is None else torch.from_numpy(np.asarray(tree))
+
+
+def conv_leaves(tree):
+    """[(conv index, key, numpy array in the JAX layout)] of a params-shaped
+    tree from either package (OIHW kernels back to HWIO)."""
+    out = []
+    for i, p in enumerate(tree["convs"]):
+        for k in sorted(p):
+            v = p[k]
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+                if k == "w":
+                    v = v.transpose(2, 3, 1, 0)
+            out.append((i, k, np.asarray(v)))
+    return out
+
+
+def rel_rms(got, want) -> float:
+    """RMS of the difference over the RMS of ``want``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.sqrt(np.mean((got - want) ** 2))
+                 / max(np.sqrt(np.mean(want ** 2)), 1e-30))
+
+
+def adam_step_agreement(before, after_jax, after_torch, lr: float):
+    """One Adam step from the same parameters on both sides: (fraction of
+    entries whose updates agree to 1e-2 * lr, largest update difference
+    over lr).  A first Adam step moves every entry by lr * g / (|g| + eps),
+    i.e. by +-lr wherever |g| >> eps, so updates agree wherever the two
+    gradients agree in sign; an entry whose gradient sign differs moves by
+    up to 2 * lr."""
+    agree = total = 0
+    worst = 0.0
+    for (_, _, b), (_, _, j), (_, _, t) in zip(
+            conv_leaves(before), conv_leaves(after_jax),
+            conv_leaves(after_torch)):
+        d = np.abs((t - b) - (j - b))
+        agree += int((d <= 1e-2 * lr).sum())
+        total += d.size
+        worst = max(worst, float(d.max()) / lr)
+    return agree / total, worst

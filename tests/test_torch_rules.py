@@ -17,6 +17,7 @@ from _torch_parity import IMG, SHALLOW
 from yolov4tpu import api as japi
 from yolov4tpu.config import YoloConfig as JaxConfig
 from yolov4tpu_torch import api as tapi
+from yolov4tpu_torch import train as ttrain
 from yolov4tpu_torch.config import YoloConfig
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -26,7 +27,10 @@ REFERENCE_DICT = {"img_size": [IMG, IMG, 3], "max_boxes": 50, "num_gpu": 2,
 
 def test_port_imports_nothing_of_jax():
     code = ("import sys, yolov4tpu_torch, yolov4tpu_torch.api, "
-            "yolov4tpu_torch.weights, yolov4tpu_torch.ops.nms_cuda\n"
+            "yolov4tpu_torch.weights, yolov4tpu_torch.ops.nms_cuda, "
+            "yolov4tpu_torch.train, yolov4tpu_torch.losses, "
+            "yolov4tpu_torch.data.encode, yolov4tpu_torch.data.pipeline, "
+            "yolov4tpu_torch.ops.wgrad_cuda\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'yolov4tpu' or "
             "m.startswith('yolov4tpu.'))\n"
@@ -61,6 +65,21 @@ def test_default_device_is_cuda_and_raises_without_it(tiny_classes):
         tapi.Yolov4(None, tiny_classes, config=cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tapi.Yolov4(None, tiny_classes, config=cfg, device="cuda")
+
+
+def test_trainer_and_fit_default_to_cuda_and_raise_without_it(tiny_classes):
+    assert not torch.cuda.is_available()
+    cfg = YoloConfig(img_size=(IMG, IMG, 3), csp_repeats=SHALLOW)
+    params = {"convs": [{"w": torch.zeros(1, 1, 1, 1),
+                         "b": torch.zeros(1)}]}
+    state = {"bn": [None]}
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ttrain.Trainer(cfg, 3, params, state, **kw)
+    # The facade's fit builds its trainer on the facade's device, which
+    # defaults to the card and raises at construction.
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapi.Yolov4(None, tiny_classes, config=cfg).fit(None, 1)
 
 
 def test_config_matches_jax():

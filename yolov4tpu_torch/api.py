@@ -1,10 +1,12 @@
 """``Yolov4`` — the reference-compatible user facade, on PyTorch and CUDA.
 
-Counterpart of ``yolov4tpu.api`` for inference: construction from darknet
-``.weights`` or a seeded random init, ``predict``, ``predict_img``,
-``predict_batch``, ``predict_raw`` and ``predict_nonms``.  The inference
-path is the BN-folded forward (models.network) -> fused decode (ops.detect)
--> candidate NMS with the CUDA suppression kernel (ops.nms_cuda).
+Counterpart of ``yolov4tpu.api`` for inference and training: construction
+from darknet ``.weights`` or a seeded random init, ``predict``,
+``predict_img``, ``predict_batch``, ``predict_raw``, ``predict_nonms``,
+``trainer``, ``fit`` and ``sync_from_trainer``.  The inference path is the
+BN-folded forward (models.network) -> fused decode (ops.detect) ->
+candidate NMS with the CUDA suppression kernel (ops.nms_cuda); training is
+``train.Trainer``.
 
 The entry points run on the card: ``device="cuda"`` is the default and
 raises on a host without CUDA.  ``device="cpu"`` runs the same code on the
@@ -20,22 +22,14 @@ import torch
 
 from . import weights
 from .config import DEFAULT_CONFIG, YoloConfig
+from .device import resolve_device
 from .models import head, network
 from .ops.detect import detect_fused
 from .ops.nms import combined_nms
+from .train import Trainer, tree_map
 from .utils.visualize import draw_bbox, get_detection_data
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises for CUDA on a host without it
-    (nothing falls back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this host; pass "
-                           "device='cpu' to run on the CPU")
-    return device
 
 
 def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype):
@@ -106,6 +100,7 @@ class Yolov4:
         self.class_color = {name: list(np.random.random(size=3) * 255)
                             for name in self.class_names}
         self._seed = seed
+        self._trainer = None
         self.build_model(load_pretrained=bool(weight_path))
 
     # ------------------------------------------------------------------
@@ -149,6 +144,15 @@ class Yolov4:
         """Swap in new (params, state) dictionaries (CPU tensors) and refold."""
         self.params, self.state = params, state
         self._refresh_inference()
+
+    def sync_from_trainer(self, trainer=None):
+        """Pull trained params/state back into the inference path (from the
+        given Trainer, or the one this facade created via ``fit``)."""
+        trainer = trainer if trainer is not None else self._trainer
+        if trainer is not None:
+            def cpu(tree):
+                return tree_map(lambda t: t.detach().cpu(), tree)
+            self.sync_params(cpu(trainer.params), cpu(trainer.state))
 
     def quantize(self, *args, **kwargs):
         raise NotImplementedError(
@@ -229,6 +233,30 @@ class Yolov4:
         imgs = torch.as_tensor(np.expand_dims(img, axis=0),
                                dtype=torch.float32).to(self.device)
         return [o.cpu().numpy() for o in self._raw(imgs)]
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    def trainer(self, schedule=None):
+        """The facade's Trainer (created on first use), holding its params
+        on the facade's device."""
+        if self._trainer is None:
+            self._trainer = Trainer(self.config, self.num_classes,
+                                    self.params, self.state,
+                                    schedule=schedule, device=self.device)
+        return self._trainer
+
+    def fit(self, train_data_gen, epochs: int, val_data_gen=None,
+            initial_epoch: int = 0, callbacks=None, verbose: bool = True,
+            resume_dir: Optional[str] = None):
+        """Train (reference models.py:100-107 — without its val=None crash),
+        then refold so ``predict_batch`` serves the trained weights."""
+        history = self.trainer().fit(
+            train_data_gen, epochs, val_gen=val_data_gen,
+            initial_epoch=initial_epoch, callbacks=callbacks,
+            verbose=verbose, resume_dir=resume_dir)
+        self.sync_from_trainer()
+        return history
 
     def predict_nonms(self, img_path: str, iou_threshold: float = 0.413,
                       score_threshold: float = 0.1):

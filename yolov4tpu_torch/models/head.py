@@ -1,4 +1,5 @@
-"""Box decoding: raw head grids -> boxes/scores (inference decode).
+"""Box decoding: raw head grids -> boxes/scores (inference and train-time
+decode).
 
 Counterpart of ``yolov4tpu.models.head`` (reference custom_layers.py:221-257):
 
@@ -70,3 +71,20 @@ def flatten_boxes_scores(head_outputs, img_size: int, num_classes: int):
         boxes.append(corners.reshape(b, -1, 4))
         scores.append((obj * cls).reshape(b, -1, num_classes))
     return torch.cat(boxes, dim=1) / float(img_size), torch.cat(scores, dim=1)
+
+
+def decode_train(raw, anchors, stride: int, num_classes: int):
+    """Train-time decode (reference loss.py:191-211): no xyscale.
+
+    raw: (B, g, g, 3*(5+C)).  Returns (B, g, g, 3, 5+C):
+    [xywh pixels, sigmoid conf, sigmoid class probs].
+    """
+    b, gh, gw = raw.shape[0], raw.shape[1], raw.shape[2]
+    p = raw.reshape(b, gh, gw, 3, 5 + num_classes)
+    grid = _xy_grid(gh, gw, raw.device)
+    xy = (torch.sigmoid(p[..., 0:2]) + grid) * stride
+    wh = torch.exp(p[..., 2:4]) * torch.as_tensor(anchors, dtype=torch.float32,
+                                                  device=raw.device)
+    conf = torch.sigmoid(p[..., 4:5])
+    prob = torch.sigmoid(p[..., 5:])
+    return torch.cat([xy, wh, conf, prob], dim=-1)

@@ -14,10 +14,10 @@ tensors in ``channels_last`` memory format, which is the same bytes.
 
 Layer semantics (reference custom_layers.py:5-31):
   - downsampling convs: top/left zero pad + stride-2 VALID conv;
-  - BatchNorm with Keras eps=1e-3, folded into conv weight + bias;
+  - BatchNorm with Keras eps=1e-3 and momentum 0.99: batch statistics in
+    training (``apply(train=True)``), folded into conv weight + bias for
+    inference (``fold_bn`` + ``apply_folded``);
   - mish via the single-exp identity, leaky-relu alpha=0.1.
-Only the BN-folded inference forward is ported; ``apply(train=True)`` comes
-with the training slice.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from . import topology
 
 BN_EPS = 1e-3  # Keras BatchNormalization default epsilon
+BN_MOMENTUM = 0.99  # Keras BatchNormalization default momentum
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +185,149 @@ def _activate(y, activation):
     return y
 
 
+class _NCHWOps:
+    """The shape ops of the topology on NCHW activations, shared by the
+    training and the folded backends."""
+
+    def upsample(self, x):
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+
+    def maxpool(self, x, pool: int):
+        # Stride-1 SAME max pool; max_pool2d pads with -inf.
+        return F.max_pool2d(x, pool, stride=1, padding=pool // 2)
+
+    def concat(self, xs):
+        return torch.cat(xs, dim=1)
+
+    def add(self, a, b):
+        return a + b
+
+
+class _BatchMoments(torch.autograd.Function):
+    """Per-channel (E[y], E[y^2]) over (N, H, W) of NCHW ``y``, both in
+    float32 from the float32 values of ``y``.  Autograd of
+    ``y.float().square().mean()`` would keep a float32 copy of every BN
+    input for the backward; this keeps ``y`` itself (in its compute dtype,
+    which the conv keeps anyway): d/dy = (g_mean + 2 y g_mean2) / count."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward(y)
+        yf = y.float()
+        return yf.mean(dim=(0, 2, 3)), yf.square().mean(dim=(0, 2, 3))
+
+    @staticmethod
+    def backward(ctx, g_mean, g_mean2):
+        (y,) = ctx.saved_tensors
+        count = y.numel() // y.shape[1]
+        g = (g_mean.view(1, -1, 1, 1)
+             + 2.0 * y.float() * g_mean2.view(1, -1, 1, 1)) / count
+        return g.to(y.dtype)
+
+
+class _ApplyOps(_NCHWOps):
+    """Ops backend over (params, state) with BatchNorm, on NCHW activations
+    (counterpart of the JAX package's ``_ApplyOps``)."""
+
+    def __init__(self, params, state, train: bool,
+                 compute_dtype=torch.float32, stats_gradient: bool = True,
+                 sample_mask=None, pallas_wgrad: bool = False):
+        self.convs = params["convs"]
+        self.bn = state["bn"]
+        self.train = train
+        self.dtype = compute_dtype
+        self.stats_gradient = stats_gradient
+        # (B,) 0/1 validity mask for padded batches: BN batch statistics
+        # count the valid samples only.
+        self.sample_mask = sample_mask
+        self.pallas_wgrad = pallas_wgrad
+        self.i = 0
+        self.new_bn: List[Optional[Dict[str, torch.Tensor]]] = []
+
+    def _moments(self, y):
+        """Batch mean and E[y^2] per channel in one pass each, float32
+        accumulation (network.py:228-254 of the JAX package)."""
+        if self.sample_mask is None:
+            return _BatchMoments.apply(y)
+        ys = y * self.sample_mask.to(self.dtype)[:, None, None, None]
+        # max(n, 1): an all-padding micro-batch must give finite stats,
+        # which the caller discards.
+        n_valid = self.sample_mask.sum(dtype=torch.float32)
+        denom = torch.clamp(n_valid, min=1.0) * (y.shape[2] * y.shape[3])
+        mean = ys.sum(dim=(0, 2, 3), dtype=torch.float32) / denom
+        # All-padding: unit variance instead of zero, so the throwaway
+        # forward does not blow up by rsqrt(eps) per layer.
+        mean2 = (ys.float().square().sum(dim=(0, 2, 3)) / denom
+                 + torch.where(n_valid > 0, 0.0, 1.0))
+        return mean, mean2
+
+    def conv(self, x, filters, kernel_size, downsampling=False,
+             activation="leaky", batch_norm=True):
+        p = self.convs[self.i]
+        bn = self.bn[self.i]
+        self.i += 1
+        w = p["w"].to(self.dtype)
+        xc = x.to(self.dtype)
+        if downsampling:
+            y = F.conv2d(F.pad(xc, (1, 0, 1, 0)), w, stride=2)
+        elif self.pallas_wgrad and self.train and kernel_size == 3:
+            from ..ops.wgrad_cuda import conv3x3_s1
+            y = conv3x3_s1(xc, w)
+        else:
+            y = F.conv2d(xc, w, padding=kernel_size // 2)
+
+        if not batch_norm:
+            self.new_bn.append(None)
+            return _activate(y + _bias(p["b"], self.dtype), activation)
+        gamma, beta = p["gamma"], p["beta"]
+        if self.train:
+            mean, mean2 = self._moments(y)
+            if not self.stats_gradient:
+                # YoloConfig.bn_stats_gradient=False: batch statistics are
+                # constants in the backward pass.
+                mean, mean2 = mean.detach(), mean2.detach()
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
+            self.new_bn.append({
+                "mean": (BN_MOMENTUM * bn["mean"]
+                         + (1 - BN_MOMENTUM) * mean).detach(),
+                "var": (BN_MOMENTUM * bn["var"]
+                        + (1 - BN_MOMENTUM) * var).detach()})
+        else:
+            mean, var = bn["mean"], bn["var"]
+            self.new_bn.append(bn)
+        inv = torch.rsqrt(var + BN_EPS)
+        scale = (gamma * inv).to(self.dtype)
+        shift = (beta - mean * gamma * inv).to(self.dtype)
+        y = y * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+        return _activate(y, activation)
+
+
+
+def apply(params, state, images, num_classes: int, train: bool = False,
+          compute_dtype=torch.float32,
+          csp_repeats=topology.DEFAULT_CSP_REPEATS,
+          bn_stats_gradient: bool = True, sample_mask=None,
+          pallas_wgrad: bool = False):
+    """Forward with BatchNorm: images (B, H, W, 3) NHWC ->
+    ([sbbox, mbbox, lbbox] NHWC float32 raw grids, new_state).
+
+    With ``train=True`` BN normalises by the batch statistics and
+    ``new_state`` carries the updated moving statistics (detached);
+    ``bn_stats_gradient=False`` treats the batch statistics as constants in
+    the backward pass; ``sample_mask`` (B,) 0/1 leaves padded samples out of
+    them; ``pallas_wgrad`` routes every 3x3 stride-1 conv through
+    ``ops.wgrad_cuda.conv3x3_s1``.  Counterpart of the JAX package's
+    ``network.apply``.
+    """
+    ops = _ApplyOps(params, state, train, compute_dtype,
+                    stats_gradient=bn_stats_gradient,
+                    sample_mask=sample_mask, pallas_wgrad=pallas_wgrad)
+    x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+    outs = topology.yolov4(ops, x, num_classes, csp_repeats)
+    outs = [o.permute(0, 2, 3, 1).float().contiguous() for o in outs]
+    return outs, ({"bn": ops.new_bn} if train else state)
+
+
 def fold_bn(params, state):
     """Fold BN into conv weight + bias:
     w' = w*g/sqrt(v+eps), b' = beta - m*g/sqrt(v+eps)."""
@@ -259,7 +403,7 @@ def _bias(b, dtype):
     return b.to(dtype).view(1, -1, 1, 1)
 
 
-class _FoldedApplyOps:
+class _FoldedApplyOps(_NCHWOps):
     """Ops backend over folded params (every conv is w+b, no BN) on NCHW
     activations."""
 
@@ -316,18 +460,6 @@ class _FoldedApplyOps:
             y = F.conv2d(x, p["w"].to(self.dtype), padding=kernel_size // 2)
         return _activate(y + _bias(p["b"], self.dtype), activation)
 
-    def upsample(self, x):
-        return F.interpolate(x, scale_factor=2, mode="nearest")
-
-    def maxpool(self, x, pool: int):
-        # Stride-1 SAME max pool; max_pool2d pads with -inf.
-        return F.max_pool2d(x, pool, stride=1, padding=pool // 2)
-
-    def concat(self, xs):
-        return torch.cat(xs, dim=1)
-
-    def add(self, a, b):
-        return a + b
 
 
 def apply_folded(folded_params, images, num_classes: int,

@@ -1,0 +1,61 @@
+"""Build the port's CUDA kernels with nvcc at first use.
+
+Every kernel source lives in ``yolov4tpu_torch/csrc/<name>.cu`` with a plain
+C interface.  ``build(name)`` compiles it into a shared library under
+``build/torch_kernels/`` at the root of the checkout, keyed by a hash of the
+source and the flags so an edit rebuilds it, and returns the library's path;
+the wrappers load it with ``ctypes``.  nvcc's ptxas report (registers, shared
+memory, spills) is kept beside the library in a ``.log`` file.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from source at first use and need the CUDA toolkit")
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` (once per source hash) and return the
+    shared library's path.  Safe to call for several sources at once from
+    threads: each build writes its own files."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"{name}-{digest}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def ptxas_report(so: Path):
+    """The ptxas lines of a built library's log that give registers,
+    shared memory and spills."""
+    return [line.strip() for line in so.with_suffix(".log").read_text()
+            .splitlines() if "registers" in line or "spill" in line]

@@ -9,30 +9,20 @@ Counterpart of ``yolov4tpu.ops.nms_pallas`` (the fast path).  The pipeline:
 
 ``suppress_rank`` launches the kernel on a CUDA tensor and runs its plain
 torch version, ``suppress_rank_reference``, on a CPU tensor; nothing else
-chooses between them.  The kernel is built with nvcc at first use, from the
-source in this package, into ``build/torch_kernels/`` at the root of the
-checkout, keyed by a hash of the source and flags so an edit rebuilds it.
+chooses between them.  The kernel is built at first use by ``ops.build``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import build as kbuild
 from .nms import _finish, top_k
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "suppress_rank.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_K = 1024  # one thread per candidate, one block per (class, image)
 
 # Launches of the CUDA kernel; chip_smoke.py reads it to show the main path
@@ -40,41 +30,9 @@ MAX_K = 1024  # one thread per candidate, one block per (class, image)
 LAUNCHES = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA suppression kernel is "
-                       "built from source at first use and needs the CUDA "
-                       "toolkit")
-
-
-def build() -> Path:
-    """Compile csrc/suppress_rank.cu into a shared library (once per source
-    hash) and return its path.  nvcc's ptxas report (registers, shared
-    memory, spills) is kept beside it in a ``.log`` file."""
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"suppress_rank-{digest}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
 @functools.lru_cache(maxsize=1)
 def _library():
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(kbuild.build("suppress_rank")))
     fn = lib.suppress_rank_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -1,0 +1,599 @@
+"""Training on one device: Adam and the train step.
+
+Counterpart of ``yolov4tpu.train`` without the mesh.  The JAX package's
+step is a pure function of (params, state, opt_state, batch); here the
+parameters are float32 tensors on the device that the optimizer updates in
+place (no second copy of the 64 M parameters), and the step returns the
+new BN state and the metrics.  Parameters, state and batches are the same
+nested dictionaries and lists as in the JAX package (``models.network``),
+with OIHW kernels.
+
+Also: the cosine-annealing LR schedule of the reference's
+CosineAnnealingScheduler (reference custom_callbacks.py:5-15), gradient
+accumulation, pad-and-mask and chunked steps for ragged batches, and the
+epoch loop ``Trainer.fit``.  Data-parallel training (ROADMAP.md queue A
+item 12) and checkpoints (item 13) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from .config import YoloConfig
+from .device import resolve_device
+from .losses import yolo_loss
+from .models import network
+
+_MESH = ("is not ported yet: data-parallel training waits for ROADMAP.md "
+         "queue A item 12")
+_CHECKPOINT = ("is not ported yet: checkpoints wait for ROADMAP.md queue A "
+               "item 13")
+
+
+# ---------------------------------------------------------------------------
+# Nested dictionaries and lists of tensors (the JAX package's pytrees)
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of ``tree`` (and the matching leaves of ``rest``);
+    None entries (convs without BN) stay None."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def leaves(tree) -> list:
+    """The leaves of ``tree`` in order (dict insertion order)."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def unflatten(tree, values):
+    """``tree`` with its leaves replaced, in order, by ``values``."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _batch_size(batch) -> int:
+    return leaves(batch)[0].shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Learning rate and optimizers
+# ---------------------------------------------------------------------------
+
+def cosine_annealing_schedule(lr_max: float, lr_min: float, cycle_epochs: int,
+                              steps_per_epoch: int) -> Callable[[int], float]:
+    """Per-epoch cosine annealing with restarts (reference
+    custom_callbacks.py:13-15):
+    lr = lr_min + (lr_max - lr_min) * (1 + cos(pi * (epoch % cycle) / cycle)) / 2
+    """
+
+    def schedule(step):
+        epoch = step // steps_per_epoch
+        t = (epoch % cycle_epochs) / cycle_epochs
+        return lr_min + (lr_max - lr_min) * (1 + math.cos(math.pi * t)) / 2
+
+    return schedule
+
+
+class Adam:
+    """``torch.optim.Adam`` (eps 1e-8) over a list of tensors, updated in
+    place from the gradients handed to ``step``.  Its update is optax.adam's,
+    lr * mu_hat / (sqrt(nu_hat) + eps).
+
+    With ``schedule`` the LR of each step is ``schedule(count)`` at the
+    pre-increment step count, as optax reads it (the first step uses
+    schedule(0)).  Without one, the LR lives in the param group, where
+    ``Trainer.set_learning_rate`` changes it between steps.
+    """
+
+    def __init__(self, tensors, learning_rate: float, schedule=None):
+        self.tensors = list(tensors)
+        self.schedule = schedule
+        self.count = 0
+        lr = schedule(0) if schedule is not None else learning_rate
+        self.opt = torch.optim.Adam(self.tensors, lr=float(lr), eps=1e-8)
+
+    def step(self, grads):
+        for t, g in zip(self.tensors, grads):
+            t.grad = g
+        if self.schedule is not None:
+            self.opt.param_groups[0]["lr"] = float(self.schedule(self.count))
+        self.opt.step()
+        self.count += 1
+        for t in self.tensors:
+            t.grad = None
+
+
+class FusedAdam:
+    """Adam over ONE flat vector of every parameter (``fused_adam``): the
+    moments are two flat tensors and each step is a handful of full-length
+    ops instead of a few per parameter.  The same update as ``Adam``;
+    ``learning_rate`` is a float or a schedule read at the pre-increment
+    count."""
+
+    def __init__(self, tensors, learning_rate, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.tensors = list(tensors)
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps = b1, b2, eps
+        n = sum(t.numel() for t in self.tensors)
+        ref = self.tensors[0]
+        self.mu = torch.zeros(n, dtype=torch.float32, device=ref.device)
+        self.nu = torch.zeros_like(self.mu)
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads):
+        flat_g = torch.cat([g.reshape(-1).float() for g in grads])
+        count = self.count + 1
+        self.mu = self.b1 * self.mu + (1 - self.b1) * flat_g
+        self.nu = self.b2 * self.nu + (1 - self.b2) * flat_g.square()
+        mu_hat = self.mu / (1 - self.b1 ** count)
+        nu_hat = self.nu / (1 - self.b2 ** count)
+        lr = (self.learning_rate(self.count) if callable(self.learning_rate)
+              else self.learning_rate)
+        updates = -lr * mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        offset = 0
+        for t in self.tensors:
+            t.add_(updates[offset:offset + t.numel()].view(t.shape))
+            offset += t.numel()
+        self.count = count
+
+
+def fused_adam(tensors, learning_rate, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8) -> FusedAdam:
+    return FusedAdam(tensors, learning_rate, b1, b2, eps)
+
+
+def make_optimizer(config: YoloConfig, tensors, schedule=None):
+    """Adam at ``config.learning_rate`` over ``tensors`` (reference
+    models.py:83), or driven by ``schedule``; ``config.fused_optimizer``
+    selects the flat-vector ``fused_adam``."""
+    if config.fused_optimizer:
+        return fused_adam(tensors, schedule if schedule is not None
+                          else config.learning_rate)
+    return Adam(tensors, config.learning_rate, schedule)
+
+
+# ---------------------------------------------------------------------------
+# The gradient core and the steps
+# ---------------------------------------------------------------------------
+
+def _maybe_encode_on_device(batch: dict, config: YoloConfig,
+                            num_classes: int) -> dict:
+    """A {'image', 'raw_boxes'} batch (``config.encode_on_device``) -> a
+    labels batch, encoded where the batch lies (on the card in training);
+    batches that already carry 'labels' pass through."""
+    if "labels" in batch:
+        return batch
+    from .data.encode import encode_labels_torch
+    img_hw = batch["image"].shape[-3:-1]
+    labels, xywh = encode_labels_torch(
+        batch["raw_boxes"], img_hw, config.anchors_flat, num_classes,
+        config.strides)
+    out = {"image": batch["image"], "labels": labels, "boxes": xywh}
+    if "mask" in batch:
+        out["mask"] = batch["mask"]
+    return out
+
+
+def _compute_dtype(config: YoloConfig):
+    return torch.bfloat16 if config.compute_dtype == "bfloat16" \
+        else torch.float32
+
+
+def _make_grad_and_metrics(num_classes: int, config: YoloConfig):
+    """(params, state, batch) -> (grads, new_state, metrics): the shared
+    core of every train step.  BN batch statistics are over the batch it is
+    given; with a (B,) 0/1 "mask" in the batch, padded samples drop out of
+    the loss means and the BN statistics."""
+    anchors = config.anchors_grouped
+    dtype = _compute_dtype(config)
+    weights = (config.loss_box_weight, config.loss_conf_weight,
+               config.loss_prob_weight)
+
+    def loss_of(params, state, batch, images, mask):
+        outs, new_state = network.apply(
+            params, state, images, num_classes, train=True,
+            compute_dtype=dtype, csp_repeats=config.csp_repeats,
+            bn_stats_gradient=config.bn_stats_gradient, sample_mask=mask,
+            pallas_wgrad=config.pallas_wgrad)
+        total, comps = yolo_loss(
+            outs, batch["labels"], batch["boxes"], anchors, config.strides,
+            num_classes, config.iou_loss_thresh, weights=weights,
+            label_smoothing=config.label_smoothing, return_components=True,
+            sample_mask=mask)
+        return total, comps, new_state
+
+    def grad_and_metrics(params, state, batch):
+        if batch["image"].dtype == torch.uint8:
+            # uint8 wire (config.transfer_uint8): normalise on the device.
+            batch = dict(batch, image=batch["image"].to(torch.float32) / 255.0)
+        batch = _maybe_encode_on_device(batch, config, num_classes)
+        mask = batch.get("mask")
+        images = batch["image"]
+        if config.sat_epsilon > 0.0:
+            # Self-adversarial training: one FGSM step on the images that
+            # raises the current loss, then the update on the perturbed batch.
+            img = images.detach().requires_grad_(True)
+            total, _, _ = loss_of(params, state, batch, img, mask)
+            (g_img,) = torch.autograd.grad(total, img)
+            images = torch.clamp(images + config.sat_epsilon
+                                 * torch.sign(g_img), 0.0, 1.0)
+        live = [t.detach().requires_grad_(True) for t in leaves(params)]
+        total, comps, new_state = loss_of(unflatten(params, live), state,
+                                          batch, images, mask)
+        grads = torch.autograd.grad(total, live)
+        metrics = {"loss": total.detach(),
+                   **{k: v.detach() for k, v in comps.items()}}
+        return unflatten(params, grads), new_state, metrics
+
+    return grad_and_metrics
+
+
+def _accumulated(grad_and_metrics, accum: int):
+    """Wrap a core so it loops over ``accum`` micro-batches stacked on a
+    leading axis: activations exist for one micro-batch at a time.
+    Gradients and metrics are averaged, weighted by each micro-batch's valid
+    count when the batch carries a mask; BN statistics update sequentially
+    through the micro-batches, and an all-padding micro-batch leaves them
+    as they were."""
+    if accum <= 1:
+        return grad_and_metrics
+
+    def accumulated(params, state, batch):
+        has_mask = "mask" in batch
+        gsum = tree_map(torch.zeros_like, params)
+        msum, wsum, st = None, 0.0, state
+        for i in range(accum):
+            micro = tree_map(lambda x: x[i], batch)
+            g, new_st, m = grad_and_metrics(params, st, micro)
+            w = micro["mask"].sum(dtype=torch.float32) if has_mask else 1.0
+            gsum = tree_map(lambda a, b: a + w * b, gsum, g)
+            if has_mask:
+                new_st = tree_map(lambda n, o: torch.where(w > 0, n, o),
+                                   new_st, st)
+            st = new_st
+            m = tree_map(lambda x: x * w, m)
+            msum = m if msum is None else tree_map(torch.add, msum, m)
+            wsum = wsum + w
+        denom = (torch.clamp(wsum, min=1e-6) if torch.is_tensor(wsum)
+                 else max(wsum, 1e-6))
+        grads = tree_map(lambda g: g / denom, gsum)
+        metrics = tree_map(lambda x: x / denom, msum)
+        return grads, st, metrics
+
+    return accumulated
+
+
+def chunk_batch(batch: dict, accum: int) -> dict:
+    """(B, ...) batch -> (accum, B/accum, ...) micro-batch stack for the
+    gradient-accumulation step.  B must divide evenly."""
+    def chunk(x):
+        b = x.shape[0]
+        if b % accum:
+            raise ValueError(f"batch size {b} not divisible by "
+                             f"grad_accum_steps {accum}")
+        return x.reshape(accum, b // accum, *x.shape[1:])
+
+    return tree_map(chunk, batch)
+
+
+_SMALL_POW2 = (1, 2, 4, 8, 16, 32)
+
+
+def aligned_batch(b: int) -> bool:
+    """Batch sizes the JAX package's TPU tiling likes: small (<=32), or a
+    multiple of 32.  Kept because they decide which batches get per-chunk
+    BN statistics (``Trainer._chunked_step``), which is part of the
+    result."""
+    return b <= 32 or b % 32 == 0
+
+
+def aligned_size(b: int) -> int:
+    """Smallest aligned batch >= b (next power of two up to 32, then the
+    next multiple of 32)."""
+    if b <= 32:
+        return next(p for p in _SMALL_POW2 if p >= b)
+    return -(-b // 32) * 32
+
+
+def decompose_batch(b: int):
+    """Split a non-aligned batch into aligned chunks: the largest multiple
+    of 32, plus the remainder padded up to the next power of two.  Returns
+    [(chunk_size, n_valid)]."""
+    if aligned_batch(b):
+        return [(b, b)]
+    main = 32 * (b // 32)
+    rem = b - main
+    tgt = next(p for p in _SMALL_POW2 if p >= rem)
+    return [(main, main), (tgt, rem)]
+
+
+def pad_mask_batch(batch: dict, target: int) -> dict:
+    """Pad every leaf to ``target`` samples on axis 0 with zeros and attach
+    a (target,) float32 0/1 validity mask: the step on it equals the trimmed
+    batch's step."""
+    b = _batch_size(batch)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(b, dtype=torch.float32,
+                          device=leaves(batch)[0].device)
+    if b == target and "mask" in batch:
+        return batch
+    pad = target - b
+
+    def pad_leaf(x):
+        return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+
+    out = {k: tree_map(pad_leaf, v) for k, v in batch.items() if k != "mask"}
+    out["mask"] = pad_leaf(mask)
+    return out
+
+
+def make_train_step(num_classes: int, config: YoloConfig, optimizer,
+                    mesh=None):
+    """The train step: (params, state, batch) -> (new_state, metrics), with
+    ``optimizer`` (built over ``params``' tensors) updating the parameters
+    in place.  batch is {'image': (B,H,W,3), 'labels': [3 grids],
+    'boxes': (B,M,4)} of tensors on the parameters' device (or
+    {'image', 'raw_boxes'} with ``encode_on_device``).  With
+    ``config.grad_accum_steps > 1`` the batch must be pre-chunked by
+    ``chunk_batch``."""
+    if mesh is not None:
+        raise NotImplementedError(f"make_train_step(mesh=...) {_MESH}")
+    grad_and_metrics = _accumulated(
+        _make_grad_and_metrics(num_classes, config), config.grad_accum_steps)
+
+    def step(params, state, batch):
+        grads, new_state, metrics = grad_and_metrics(params, state, batch)
+        optimizer.step(leaves(grads))
+        return new_state, metrics
+
+    return step
+
+
+def make_train_step_twophase(*args, **kwargs):
+    raise NotImplementedError(f"make_train_step_twophase {_MESH}")
+
+
+def make_eval_step(num_classes: int, config: YoloConfig, mesh=None,
+                   masked: bool = False):
+    """Validation loss with BN in inference mode, in float32; ``masked``:
+    the batch carries a (B,) 0/1 "mask" and the loss is the mean over its
+    valid samples."""
+    if mesh is not None:
+        raise NotImplementedError(f"make_eval_step(mesh=...) {_MESH}")
+    anchors = config.anchors_grouped
+
+    @torch.no_grad()
+    def step(params, state, batch):
+        if batch["image"].dtype == torch.uint8:
+            batch = dict(batch, image=batch["image"].to(torch.float32) / 255.0)
+        batch = _maybe_encode_on_device(batch, config, num_classes)
+        mask = batch.get("mask") if masked else None
+        outs, _ = network.apply(params, state, batch["image"], num_classes,
+                                train=False, csp_repeats=config.csp_repeats)
+        return yolo_loss(outs, batch["labels"], batch["boxes"], anchors,
+                         config.strides, num_classes, config.iou_loss_thresh,
+                         weights=(config.loss_box_weight,
+                                  config.loss_conf_weight,
+                                  config.loss_prob_weight),
+                         sample_mask=mask)
+
+    return step
+
+
+class Trainer:
+    """Owns (params, state, optimizer) on one device and runs epochs over a
+    DataGenerator.
+
+    ``optimizer``: a function of the parameter tensors that returns an
+    optimizer with ``step(grads)`` (default: ``make_optimizer``).  The
+    device is the card unless the caller asks for the CPU, and raises
+    without CUDA.
+    """
+
+    def __init__(self, config: YoloConfig, num_classes: int, params, state,
+                 mesh=None, schedule=None, optimizer=None, device="cuda"):
+        if mesh is not None or config.num_devices > 1:
+            raise NotImplementedError(f"Trainer with a mesh or num_devices>1 "
+                                      f"{_MESH}")
+        self.config = config
+        self.num_classes = num_classes
+        self.device = resolve_device(device)
+
+        def place(t):
+            return torch.as_tensor(t).detach().to(self.device, torch.float32,
+                                                  copy=True)
+
+        self.params = tree_map(place, params)
+        self.state = tree_map(place, state)
+        tensors = leaves(self.params)
+        self.optimizer = (optimizer(tensors) if optimizer is not None
+                          else make_optimizer(config, tensors, schedule))
+        self._step = make_train_step(num_classes, config, self.optimizer)
+        self._eval = make_eval_step(num_classes, config)
+        self._eval_masked = None   # lazy: pad-and-mask eval (ragged tails)
+        self._chunk_grad = None    # lazy: gradient core for aligned chunks
+        self.global_step = 0
+        self.history = []
+
+    def _place(self, batch):
+        return tree_map(lambda x: torch.as_tensor(x).to(self.device), batch)
+
+    def _prefetch_place(self, batch):
+        """Producer-thread placement: copies a full batch to the card from
+        pinned host memory without blocking, so batch N+1's copy overlaps
+        batch N's step (both on the current stream, so the step sees the
+        copied bytes).  Batches that train_step pads or chunks stay on the
+        host."""
+        b = _batch_size(batch)
+        if self.config.grad_accum_steps != 1 or not aligned_batch(b):
+            return batch
+
+        def copy(x):
+            t = torch.as_tensor(x)
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
+
+        return tree_map(copy, batch)
+
+    def train_step(self, batch) -> dict:
+        """Run one optimizer step; never drops samples.  A non-aligned batch
+        runs as aligned chunks; a batch that does not split into
+        ``grad_accum_steps`` micro-batches is padded with a validity mask."""
+        batch = tree_map(torch.as_tensor, batch)
+        accum = self.config.grad_accum_steps
+        b = _batch_size(batch)
+        if accum == 1 and not aligned_batch(b):
+            return self._chunked_step(batch)
+        if accum > 1:
+            if self.config.batch_size % accum:
+                raise ValueError(
+                    f"full batches of {self.config.batch_size} samples "
+                    f"cannot be split into grad_accum_steps={accum} "
+                    "micro-batches — lower grad_accum_steps or raise "
+                    "batch_size")
+            if b % accum:
+                batch = pad_mask_batch(batch, -(-b // accum) * accum)
+            batch = chunk_batch(batch, accum)
+        self.state, metrics = self._step(self.params, self.state,
+                                         self._place(batch))
+        self.global_step += 1
+        return metrics
+
+    def _chunked_step(self, batch) -> dict:
+        """One optimizer step over a non-aligned batch as aligned chunks:
+        each chunk has its own BN batch statistics; gradients, BN states and
+        metrics combine weighted by valid counts, then one Adam update."""
+        if self._chunk_grad is None:
+            self._chunk_grad = _make_grad_and_metrics(self.num_classes,
+                                                      self.config)
+        gs, sts, ms, ws = [], [], [], []
+        offset = 0
+        for size, valid in decompose_batch(_batch_size(batch)):
+            piece = tree_map(lambda x: x[offset:offset + valid], batch)
+            offset += valid
+            if valid < size:
+                piece = pad_mask_batch(piece, size)
+            g, st, m = self._chunk_grad(self.params, self.state,
+                                        self._place(piece))
+            gs.append(g)
+            sts.append(st)
+            ms.append(m)
+            ws.append(float(valid))
+        wsum = sum(ws)
+
+        def wavg(*xs):
+            return sum(w * x for w, x in zip(ws, xs)) / wsum
+
+        grads = tree_map(wavg, *gs)
+        self.state = tree_map(wavg, *sts)
+        metrics = tree_map(wavg, *ms)
+        self.optimizer.step(leaves(grads))
+        self.global_step += 1
+        return metrics
+
+    # -- mutable learning rate (callback-driven scheduling) ---------------
+    def _lr_group(self) -> dict:
+        opt = self.optimizer
+        if not isinstance(opt, Adam) or opt.schedule is not None:
+            raise RuntimeError(
+                "this Trainer's optimizer does not expose a mutable "
+                "learning rate (it was built with a schedule or a "
+                "custom/fused optimizer) — construct the Trainer without "
+                "`schedule`, or use train.cosine_annealing_schedule")
+        return opt.opt.param_groups[0]
+
+    @property
+    def learning_rate(self) -> float:
+        """The LR the next optimizer step will apply."""
+        return float(self._lr_group()["lr"])
+
+    def set_learning_rate(self, lr: float) -> None:
+        """Set the LR applied from the next step on."""
+        self._lr_group()["lr"] = float(lr)
+
+    def eval_step(self, batch):
+        """Validation loss on one batch; a non-aligned batch is padded with
+        a validity mask and gives exactly the trimmed batch's loss."""
+        batch = tree_map(torch.as_tensor, batch)
+        b = _batch_size(batch)
+        if not aligned_batch(b):
+            batch = pad_mask_batch(batch, aligned_size(b))
+            if self._eval_masked is None:
+                self._eval_masked = make_eval_step(
+                    self.num_classes, self.config, masked=True)
+            return self._eval_masked(self.params, self.state,
+                                     self._place(batch))
+        return self._eval(self.params, self.state, self._place(batch))
+
+    def save_checkpoint(self, path: str, epoch: int = -1):
+        raise NotImplementedError(f"Trainer.save_checkpoint {_CHECKPOINT}")
+
+    def restore_checkpoint(self, path: str) -> int:
+        raise NotImplementedError(f"Trainer.restore_checkpoint {_CHECKPOINT}")
+
+    def fit(self, train_gen, epochs: int, val_gen=None, initial_epoch: int = 0,
+            callbacks: Optional[Iterable[Callable]] = None,
+            log_every: int = 50, verbose: bool = True,
+            resume_dir: Optional[str] = None):
+        """Epoch loop with prefetching (reference fit, models.py:100-107 —
+        minus its crash when val_gen is None).  Returns the history: one
+        {'epoch', 'loss', 'time'[, 'val_loss']} entry per epoch."""
+        if resume_dir is not None:
+            raise NotImplementedError(f"fit(resume_dir=...) {_CHECKPOINT}")
+        from .data.pipeline import prefetch
+
+        for epoch in range(initial_epoch, epochs):
+            for cb in (callbacks or []):
+                begin = getattr(cb, "on_epoch_begin", None)
+                if begin is not None:
+                    begin(self, epoch)
+            t0 = time.time()
+            # Losses stay on the device until a log point or the epoch's
+            # end, so the host does not wait for each step.
+            n, losses = 0, []
+            for batch in prefetch(train_gen, epochs=1,
+                                  transform=self._prefetch_place):
+                metrics = self.train_step(batch)
+                n += 1
+                losses.append(metrics["loss"])
+                if verbose and n % log_every == 0:
+                    mean = sum(float(l) for l in losses) / n
+                    print(f"epoch {epoch} step {n}/{len(train_gen)} "
+                          f"loss {mean:.4f}")
+            if n == 0:
+                raise ValueError(
+                    f"epoch {epoch} ran zero optimizer steps — the "
+                    "generator yielded no batches; grow the dataset")
+            loss_sum = float(sum(float(l) for l in losses))
+            entry = {"epoch": epoch, "loss": loss_sum / n,
+                     "time": time.time() - t0}
+            if val_gen is not None:
+                vlosses = [self.eval_step(batch)
+                           for batch in prefetch(val_gen, epochs=1)]
+                entry["val_loss"] = (sum(float(v) for v in vlosses)
+                                     / max(len(vlosses), 1))
+            self.history.append(entry)
+            if verbose:
+                print({k: (f"{v:.4f}" if isinstance(v, float) else v)
+                       for k, v in entry.items()})
+            for cb in (callbacks or []):
+                cb(self, entry)
+        return self.history
