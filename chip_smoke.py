@@ -7,9 +7,11 @@ exits non-zero without printing a result:
 
   1. the card (name and power limit, as nvidia-smi reports them) and the
      build of every CUDA kernel from the sources in the checkout;
-  2. each kernel against its plain PyTorch version at the main path's
-     shapes (B=8, C=80, K=256, and K=100): random and tie-heavy scores, a
-     per-class cap that bites, an all-empty image — results exactly equal;
+  2. each NMS kernel against its plain PyTorch version at the main path's
+     shapes, results exactly equal: the rank kernel (B=8, C=80, K=256 and
+     K=100) on random and tie-heavy scores, a per-class cap that bites, an
+     all-empty image; the sorted kernel (B=8, C=80, K=256, 252 and 1024) on
+     dense, sparse, non-prefix and empty masks;
   3. the main path through the user's entry points: ``Yolov4`` at full
      depth, 416x416, COCO-80, random darknet weights from a seed with the
      head biases calibrated to ~120 boxes per image, ``predict_batch`` at
@@ -19,6 +21,17 @@ exits non-zero without printing a result:
      card (TF32 off) matches the port on the CPU within 1e-3 per box,
      ``predict()`` on a written JPEG returns a DataFrame, and the bfloat16
      throughput at batch 8 and 64;
+  3b. the same with ``nms_impl="pallas"`` (per-class top-K + the sorted
+     suppression kernel): ``predict_batch`` at b8 float32 and b8/b64
+     bfloat16, the kernel launched once a call; its NMS tail equal to the
+     exact plain NMS (``nms_impl="xla"``) on the same boxes and scores, the
+     card against the CPU within 1e-3 per box, how many images differ from
+     the fast path at score 0.05, the stages' times and img/s;
+  3c. the evaluation path through the user's entry points: ``export_gt`` ->
+     ``export_prediction`` (b8) -> ``eval_map`` over the 16 JPEGs of phase
+     5, with the uint8 wire and with letterbox, at the mAP convention's
+     score threshold 0.05, and a self-consistency run whose ground truth is
+     the card's own detections (mAP exactly 1.0);
   4. the weight-gradient kernel against its plain version at the nine
      shapes of the 37 3x3 stride-1 convs of the training path at 416^2, b8,
      in float32 and bfloat16, plus a delta input (exactly equal) and a
@@ -274,6 +287,342 @@ def predict_rate(torch, model, imgs_u8, iters: int = 10) -> float:
         model.predict_batch(imgs_u8)
     torch.cuda.synchronize()
     return iters * len(imgs_u8) / (time.perf_counter() - t0)
+
+# ---------------------------------------------------------------------------
+# The sorted suppression kernel, nms_impl="pallas" and the evaluation path
+# ---------------------------------------------------------------------------
+
+def sorted_candidates(torch, rng, b, c, k, kind):
+    """The sorted kernel's inputs on the card: corner planes (B, 4, C, K)
+    of overlapping boxes with lo <= hi, and a 0/1 valid mask (B, C, K):
+    every candidate ("dense"), a short prefix per class ("sparse", as at a
+    high score threshold), a random non-prefix mask, or none ("empty")."""
+    xy = rng.uniform(0.2, 0.8, (b, c, k, 2))
+    wh = rng.uniform(0.05, 0.25, (b, c, k, 2))
+    lo, hi = np.clip(xy - wh / 2, 0, 1), np.clip(xy + wh / 2, 0, 1)
+    coords = np.stack([lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1]], 1)
+    if kind == "dense":
+        valid = np.ones((b, c, k), bool)
+    elif kind == "sparse":
+        valid = np.arange(k) < rng.integers(0, 12, (b, c, 1))
+    elif kind == "non-prefix":
+        valid = rng.uniform(size=(b, c, k)) < 0.5
+    else:
+        valid = np.zeros((b, c, k), bool)
+    return (torch.from_numpy(coords.astype(np.float32)).cuda(),
+            torch.from_numpy(valid.astype(np.float32)).cuda())
+
+
+def sorted_kernel_phase(torch, nms_cuda):
+    """Phase 2b: the sorted suppression kernel against its plain version."""
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for kind, k in (("dense", 256), ("sparse", 256), ("non-prefix", 256),
+                    ("empty", 256), ("dense", 252), ("non-prefix", 252),
+                    ("dense", 1024)):
+        coords, valid = sorted_candidates(torch, rng, 8, 80, k, kind)
+        got = nms_cuda.suppress(coords, valid, 0.413)
+        torch.cuda.synchronize()
+        want = nms_cuda.suppress_reference(coords, valid, 0.413)
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want),
+              f"suppress kernel != plain version ({kind}, K={k}): "
+              f"{int((got != want).sum())} entries differ")
+        check(not bool((got > valid).any()), f"{kind}: an invalid candidate "
+              "was kept")
+        check(kind == "empty" or bool((got < valid).any()),
+              f"{kind}: nothing was suppressed")
+        worst = max(worst, err)
+        log(f"suppress vs plain: {kind} B=8 C=80 K={k}: {int(valid.sum())} "
+            f"valid, {int(got.sum())} kept, equal (max abs err {err})")
+    try:
+        nms_cuda.suppress(torch.zeros(1, 4, 1, 1025, device="cuda"),
+                          torch.zeros(1, 1, 1025, device="cuda"), 0.4)
+    except ValueError as e:
+        log(f"suppress at K=1025 raises: {e}")
+    else:
+        raise SmokeFailure("suppress took K=1025, past its limit of 1024")
+    return worst
+
+
+def sorted_path_inputs(torch, nms_cuda, model, images):
+    """The forward, decode and per-class top-K of the ``"pallas"`` path on
+    device ``images``: returns (raws, boxes, scores, (top_scores,
+    top_boxes, coords, valid))."""
+    from yolov4tpu_torch.models import head
+    cfg = model.config
+    with torch.inference_mode():
+        raws = model._raw(images)
+        boxes, scores = head.flatten_boxes_scores(
+            head.decode_head(raws, cfg.anchors_grouped, model.num_classes,
+                             cfg.strides, cfg.xyscale),
+            cfg.img_size[0], model.num_classes)
+        staged = nms_cuda.sorted_inputs(boxes, scores, cfg.score_threshold,
+                                        cfg.nms_pre_top_k)
+    return raws, boxes, scores, staged
+
+
+def sorted_bound_ms(torch, coords, valid, keep, nmax):
+    """The least time for one sorted suppression call on these inputs: the
+    inputs read once and ``keep`` written once at the HBM rate, or the IoU
+    tests these inputs need (each surviving pivot below its image's loop
+    bound against every valid candidate after it) at the float32 rate,
+    whichever is larger.  Returns (ms, "bytes"|"operations")."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (coords, valid, keep, nmax))
+    v = (valid > 0.5).double()
+    later = v.flip(-1).cumsum(-1).flip(-1) - v          # valid after each i
+    col = torch.arange(valid.shape[-1], device=valid.device)
+    pivots = (keep > 0.5) & (col < nmax[:, None, None])
+    tests = float((later * pivots).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = tests * IOU_OPS / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sorted_times(torch, nms_cuda, model, imgs_u8, label, card):
+    """The ``"pallas"`` path's stages timed alone on the main path's inputs,
+    and the sorted kernel against its plain version and its bound."""
+    from yolov4tpu_torch.models import head
+    from yolov4tpu_torch.ops.nms import finalize
+    cfg = model.config
+    images = torch.from_numpy(imgs_u8).cuda().float() / 255.0
+    raws, boxes, scores, staged = sorted_path_inputs(torch, nms_cuda, model,
+                                                     images)
+    top_scores, top_boxes, coords, valid = staged
+    iou = cfg.iou_threshold
+    with torch.inference_mode():
+        keep = nms_cuda.suppress(coords, valid, iou)
+        want = nms_cuda.suppress_reference(coords, valid, iou)
+        err = float((keep - want).abs().max())
+        check(torch.equal(keep, want), f"suppress != plain version ({label})")
+        stages = {
+            "forward": cuda_ms(lambda: model._raw(images), n=3),
+            "decode + flatten": cuda_ms(lambda: head.flatten_boxes_scores(
+                head.decode_head(raws, cfg.anchors_grouped, model.num_classes,
+                                 cfg.strides, cfg.xyscale),
+                cfg.img_size[0], model.num_classes), n=10),
+            "per-class top-k": cuda_ms(lambda: nms_cuda.sorted_inputs(
+                boxes, scores, cfg.score_threshold, cfg.nms_pre_top_k), n=10),
+            "suppress kernel": cuda_ms(
+                lambda: nms_cuda.suppress(coords, valid, iou), n=50),
+            "finalize": cuda_ms(lambda: finalize(
+                top_scores, top_boxes, keep > 0.5, cfg.max_boxes,
+                cfg.max_boxes, True), n=10),
+        }
+        plain_ms = cuda_ms(
+            lambda: nms_cuda.suppress_reference(coords, valid, iou),
+            n=1, repeats=3, warmup=1)
+    nmax = nms_cuda._loop_bounds(valid)
+    bound, bound_by = sorted_bound_ms(torch, coords, valid, keep, nmax)
+    ms = stages["suppress kernel"]
+    log(f"suppress {label}: shape {tuple(valid.shape)}, loop bounds "
+        f"{int(nmax.min())}-{int(nmax.max())}, valid per class mean "
+        f"{float(valid.sum(-1).mean()):.2f}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.6f} ms ({bound_by}) ({card})")
+    log(f"stages pallas {label} (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + f" ({card})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                max_abs_err=err)
+
+
+def pallas_phase(torch, nms_cuda, fast32, fast16, m32p, m16p, cpu, f32, u8,
+                 u64, card):
+    """Phase 3b: ``predict_batch`` with ``nms_impl="pallas"``, its checks,
+    times and rates.  Returns (launches, worst error, b8 f32 timings)."""
+    from yolov4tpu_torch.ops.nms import combined_nms
+    nms_cuda.LAUNCHES = 0
+    nms_cuda.SUPPRESS_LAUNCHES = 0
+    outs = {"f32 float b8": m32p.predict_batch(f32),
+            "f32 uint8 b8": m32p.predict_batch(u8),
+            "bf16 uint8 b8": m16p.predict_batch(u8),
+            "bf16 uint8 b64": m16p.predict_batch(u64)}
+    torch.cuda.synchronize()
+    launches = nms_cuda.SUPPRESS_LAUNCHES
+    check(launches == len(outs), f"suppress launched {launches} times in "
+          f"{len(outs)} predict_batch calls with nms_impl='pallas'")
+    check(nms_cuda.LAUNCHES == 0, "nms_impl='pallas' ran the rank kernel")
+    log(f"main path (pallas): {len(outs)} predict_batch calls, suppress "
+        f"launched {launches} times, suppress_rank 0")
+    for name, out in outs.items():
+        boxes, scores, classes, valid = out
+        check(tuple(boxes.shape) == (len(valid), 100, 4) and boxes.is_cuda,
+              f"pallas {name}: boxes {tuple(boxes.shape)} on {boxes.device}")
+        check(all(bool(torch.isfinite(o.float()).all()) for o in out),
+              f"pallas {name}: non-finite outputs")
+        check(float(boxes.min()) >= 0 and float(boxes.max()) <= 1,
+              f"pallas {name}: boxes outside [0, 1]")
+        check(int(valid.min()) > 0, f"pallas {name}: an image has no "
+              f"detections ({valid.tolist()})")
+        log(f"pallas {name}: valid detections {valid.tolist()[:8]}")
+    for i in range(8):
+        match_detections(numpy_outputs(outs["f32 float b8"], i),
+                         numpy_outputs(outs["f32 uint8 b8"], i), 1e-3)
+
+    # The kernel and the NMS tail vs the plain versions on the same boxes.
+    cfg = m32p.config
+    _, boxes, scores, staged = sorted_path_inputs(
+        torch, nms_cuda, m32p, torch.from_numpy(f32).cuda())
+    coords, valid = staged[2:]
+    kw = dict(iou_threshold=cfg.iou_threshold,
+              score_threshold=cfg.score_threshold,
+              max_per_class=cfg.max_boxes, max_total=cfg.max_boxes,
+              pre_top_k=cfg.nms_pre_top_k)
+    with torch.inference_mode():
+        keep_k = nms_cuda.suppress(coords, valid, cfg.iou_threshold)
+        keep_p = nms_cuda.suppress_reference(coords, valid, cfg.iou_threshold)
+        check(torch.equal(keep_k, keep_p), "suppress on the main path's "
+              "candidates != plain version")
+        tail = nms_cuda.combined_nms_sorted(boxes, scores, **kw)
+        exact = combined_nms(boxes, scores, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(tail, exact)),
+              "pallas NMS tail != exact NMS (nms_impl='xla')")
+    worst = float((keep_k - keep_p).abs().max())
+    log(f"pallas NMS tail on the main path's boxes == exact NMS "
+        f"(nms_impl='xla'), valid {tail[3].tolist()}")
+
+    want = cpu.predict_batch(f32[:1])
+    dev = match_detections(numpy_outputs(outs["f32 float b8"], 0),
+                           numpy_outputs(want, 0), 1e-3)
+    log(f"pallas card f32 vs CPU f32, image 0: {int(want[3][0])} "
+        f"detections, classes and count equal, max deviation {dev:.3g} "
+        f"(limit 1e-3)")
+
+    # Information only: where the fast path's 256 global candidates stop
+    # being exact.
+    with torch.inference_mode():
+        best = scores.max(dim=-1).values
+    fast = fast32.predict_batch(f32, score_threshold=0.05)
+    slow = m32p.predict_batch(f32, score_threshold=0.05)
+    differ = 0
+    for i in range(len(f32)):
+        try:
+            match_detections(numpy_outputs(fast, i), numpy_outputs(slow, i),
+                             1e-3)
+        except SmokeFailure:
+            differ += 1
+    log(f"score 0.05, f32 b8: boxes above 0.05 on their best class per "
+        f"image {(best > 0.05).sum(-1).tolist()}; 'fast' and 'pallas' "
+        f"detections differ (beyond 1e-3, or in count or class) on "
+        f"{differ} of {len(f32)} images (valid {fast[3].tolist()} vs "
+        f"{slow[3].tolist()})")
+
+    t8 = sorted_times(torch, nms_cuda, m32p, u8, "b8 f32", card)
+    sorted_times(torch, nms_cuda, m16p, u8, "b8 bf16", card)
+    sorted_times(torch, nms_cuda, m16p, u64, "b64 bf16", card)
+    for bsz, imgs in ((8, u8), (64, u64)):
+        rates = [(name, predict_rate(torch, m, imgs)) for name, m in
+                 (("fast", fast16), ("pallas", m16p), ("pallas", m16p),
+                  ("fast", fast16))]
+        log(f"predict_batch bf16 b{bsz} uint8 img/s: " + ", ".join(
+            f"{n} {r:.1f}" for n, r in rates) + f" ({card})")
+    return launches, worst, t8
+
+
+def underscored_classes():
+    """COCO's 80 names with spaces as underscores: the evaluation files
+    split lines on whitespace (as the reference's do), so a name such as
+    "traffic light" would break eval_map."""
+    path = SCRATCH / "coco_classes_underscored.txt"
+    path.write_text("".join(line.strip().replace(" ", "_") + "\n"
+                            for line in CLASSES.read_text().splitlines()))
+    return path
+
+
+def evaluate(torch, nms_cuda, model, anno, folder, out, plot=True):
+    """export_gt -> export_prediction (b8) -> eval_map into ``out``; checks
+    the launches, the files and the mAP.  Returns (mAP, seconds of the
+    export, detections written, the sorted kernel's launches)."""
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+    d = {k: str(out / k) for k in ("gt", "pred", "json", "out")}
+    n_images = len(anno.read_text().splitlines())
+    model.export_gt(str(anno), d["gt"])
+    nms_cuda.SUPPRESS_LAUNCHES = 0
+    t0 = time.perf_counter()
+    model.export_prediction(str(anno), d["pred"], str(folder), bs=8,
+                            verbose=False)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    launches = nms_cuda.SUPPRESS_LAUNCHES
+    check(launches == -(-n_images // 8), f"export_prediction launched the "
+          f"sorted kernel {launches} times for {n_images} images at b8")
+    preds = sorted((out / "pred").glob("*.txt"))
+    check(len(preds) == n_images, f"{len(preds)} prediction files for "
+          f"{n_images} images")
+    n_det = sum(len(p.read_text().splitlines()) for p in preds)
+    res = model.eval_map(d["gt"], d["pred"], d["json"], d["out"], plot=plot,
+                         verbose=False)
+    m_ap = res["mAP"]
+    check(np.isfinite(m_ap) and 0.0 <= m_ap <= 1.0, f"mAP {m_ap}")
+    check((out / "out" / "output.txt").exists(), "no output.txt")
+    if plot:
+        check((out / "out" / "mAP.png").exists(), "no mAP.png")
+    return m_ap, export_s, n_det, launches
+
+
+def eval_phase(torch, nms_cuda, wpath, params, folder, card):
+    """Phase 3c: the evaluation path with nms_impl="pallas" at score 0.05,
+    on the uint8 wire and with letterbox, then the self-consistency run.
+    Returns the sorted kernel's launches over the path."""
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    import importlib.util
+    classes = underscored_classes()
+    anno = folder / "annotations.txt"
+    n = len(anno.read_text().splitlines())
+    # eval_map draws its plots with matplotlib, which a machine may lack.
+    plot = importlib.util.find_spec("matplotlib") is not None
+    if not plot:
+        log("matplotlib is not installed: eval_map runs with plot=False")
+    base = dataclasses.replace(DEFAULT_CONFIG, nms_impl="pallas",
+                               score_threshold=0.05)
+    total = 0
+    models = {}
+    for name, change in (("uint8", dict(transfer_uint8=True)),
+                         ("letterbox", dict(letterbox=True))):
+        model = Yolov4(weight_path=str(wpath), class_name_path=str(classes),
+                       config=dataclasses.replace(base, **change))
+        model.sync_params(params, model.state)
+        models[name] = model
+        out = SCRATCH / "eval" / name
+        m_ap, export_s, n_det, launches = evaluate(torch, nms_cuda, model,
+                                                   anno, folder, out, plot)
+        total += launches
+        rerun = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            model.export_prediction(str(anno), str(out / "pred"), str(folder),
+                                    bs=8, verbose=False)
+            torch.cuda.synchronize()
+            rerun.append(n / (time.perf_counter() - t0))
+        log(f"evaluation path ({name}, pallas, score 0.05, b8): {n_det} "
+            f"detections over {n} JPEGs, {launches} launches, mAP {m_ap!r} "
+            f"against the random boxes, output.txt written (plots: "
+            f"{plot}); "
+            f"export_prediction {n / export_s:.1f} img/s first run, then "
+            f"{', '.join(f'{r:.1f}' for r in rerun)} img/s ({card})")
+
+    # Self-consistency: ground truth = the card's own detections, verbatim.
+    model = models["uint8"]
+    lines = []
+    for txt in sorted((SCRATCH / "eval" / "uint8" / "pred").glob("*.txt")):
+        rows = [r.split() for r in txt.read_text().splitlines()]
+        if rows:
+            objs = [",".join(r[2:6] + [str(model.class_names.index(r[0]))])
+                    for r in rows]
+            lines.append(f"{txt.stem}.jpg {' '.join(objs)}\n")
+    self_anno = SCRATCH / "eval" / "self_annotations.txt"
+    self_anno.write_text("".join(lines))
+    m_ap, _, n_det, launches = evaluate(torch, nms_cuda, model, self_anno,
+                                        folder, SCRATCH / "eval" / "self",
+                                        plot=False)
+    total += launches
+    check(m_ap == 1.0, f"self-consistency mAP {m_ap!r} != 1.0")
+    log(f"evaluation self-consistency: {n_det} detections as ground truth "
+        f"over {len(lines)} images, mAP {m_ap!r}")
+    return total
+
 
 # ---------------------------------------------------------------------------
 # The weight-gradient kernel and the training path
@@ -705,16 +1054,18 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each
-        sos = list(pool.map(build.build, ("suppress_rank", "wgrad_3x3")))
+    sources = ("suppress_rank", "suppress", "wgrad_3x3")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        sos = list(pool.map(build.build, sources))   # one nvcc each
     log(f"built {', '.join(so.name for so in sos)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for so in sos:
         for line in build.ptxas_report(so):
             log(f"  ptxas {so.name.split('-')[0]}: {line}")
 
-    # --- 2. kernel vs plain version --------------------------------------
+    # --- 2. kernels vs plain versions --------------------------------------
     worst = kernel_phase(torch, nms_cuda)
+    sorted_worst = sorted_kernel_phase(torch, nms_cuda)
 
     # --- 3. the main path ------------------------------------------------
     SCRATCH.mkdir(parents=True, exist_ok=True)
@@ -804,18 +1155,39 @@ def main() -> int:
         rate = predict_rate(torch, m16, imgs)
         log(f"predict_batch bf16 b{bsz} uint8: {rate:.1f} img/s ({card})")
 
+    # --- 3b. nms_impl="pallas" -------------------------------------------
+    pallas = {}
+    for name, base in (("f32", DEFAULT_CONFIG),
+                       ("bf16", dataclasses.replace(
+                           DEFAULT_CONFIG, compute_dtype="bfloat16"))):
+        pallas[name] = Yolov4(weight_path=str(wpath),
+                              class_name_path=str(CLASSES),
+                              config=dataclasses.replace(base,
+                                                         nms_impl="pallas"))
+        pallas[name].sync_params(params, pallas[name].state)
+    cpu.config = dataclasses.replace(cpu.config, nms_impl="pallas")
+    cpu.sync_params(params, cpu.state)
+    _, err, s8 = pallas_phase(
+        torch, nms_cuda, m32, m16, pallas["f32"], pallas["bf16"], cpu, f32,
+        u8, u64, card)
+    sorted_worst = max(sorted_worst, err)
+    del pallas, cpu, m16, outs
+    torch.cuda.empty_cache()
+
+    # --- 3c. the evaluation path -----------------------------------------
+    folder = SCRATCH / "train"
+    lines = write_train_set(folder)
+    eval_launches = eval_phase(torch, nms_cuda, wpath, params, folder, card)
+    torch.cuda.empty_cache()
+
     # --- 4. the weight-gradient kernel ----------------------------------
     shapes = wgrad_shapes()
     check(sum(shapes.values()) == 37 and len(shapes) == 9,
           f"expected 37 3x3 stride-1 convs in 9 shapes, got {dict(shapes)}")
-    del m16, outs
-    torch.cuda.empty_cache()
     wgrad_err = wgrad_phase(torch, wgrad_cuda, shapes)
     wg = wgrad_times(torch, wgrad_cuda, shapes, card)
 
     # --- 5. the training path --------------------------------------------
-    folder = SCRATCH / "train"
-    lines = write_train_set(folder)
     wlaunches, params0, state0 = train_phase(torch, wgrad_cuda, wpath,
                                              folder, lines, card, shapes)
     fidelity_phase(torch, params0, state0, folder, lines, card)
@@ -827,6 +1199,13 @@ def main() -> int:
                 "launches": launches, "max_abs_err": worst,
                 "ms": k8["ms"], "plain_ms": k8["plain_ms"],
                 "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
+                "library_ms": None},
+               {"name": "suppress", "route": "cuda",
+                "source": "yolov4tpu_torch/csrc/suppress.cu",
+                "replaces": "yolov4tpu/ops/nms_pallas.py:37",
+                "launches": eval_launches, "max_abs_err": sorted_worst,
+                "ms": s8["ms"], "plain_ms": s8["plain_ms"],
+                "bound_ms": s8["bound_ms"], "bound_by": s8["bound_by"],
                 "library_ms": None},
                {"name": "wgrad_3x3", "route": "cuda",
                 "source": "yolov4tpu_torch/csrc/wgrad_3x3.cu",

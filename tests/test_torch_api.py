@@ -131,12 +131,10 @@ def test_predict_on_jpeg_matches_jax(models, tmp_path):
 
 def test_unported_options_raise(models, tiny_classes, tmp_path):
     tm = copy.copy(models[1])
-    with pytest.raises(NotImplementedError, match="queue B item 2"):
-        tapi.build_infer_fn(tm.config.replace(nms_impl="pallas"), 3,
+    # nms_impl="pallas" and letterbox are ported; an unknown NMS still raises.
+    with pytest.raises(ValueError, match="unknown nms_impl"):
+        tapi.build_infer_fn(tm.config.replace(nms_impl="tf"), 3,
                             torch.float32)
-    tm.config = tm.config.replace(letterbox=True)
-    with pytest.raises(NotImplementedError, match="letterbox"):
-        tm.preprocess_img(images(0, 1)[0])
     with pytest.raises(NotImplementedError, match="int8"):
         tm.quantize(calib_imgs=images(0, 1))
     h5 = tmp_path / "model.h5"

@@ -1,11 +1,15 @@
 """``Yolov4`` — the reference-compatible user facade, on PyTorch and CUDA.
 
-Counterpart of ``yolov4tpu.api`` for inference and training: construction
-from darknet ``.weights`` or a seeded random init, ``predict``,
-``predict_img``, ``predict_batch``, ``predict_raw``, ``predict_nonms``,
+Counterpart of ``yolov4tpu.api`` for inference, evaluation and training:
+construction from darknet ``.weights`` or a seeded random init,
+``predict``, ``predict_img``, ``predict_batch``, ``predict_paths``,
+``predict_raw``, ``predict_nonms`` (stretch or letterbox preprocessing),
+the mAP pipeline ``export_gt`` / ``export_prediction`` / ``eval_map``,
 ``trainer``, ``fit`` and ``sync_from_trainer``.  The inference path is the
 BN-folded forward (models.network) -> fused decode (ops.detect) ->
-candidate NMS with the CUDA suppression kernel (ops.nms_cuda); training is
+candidate NMS with the CUDA suppression kernel (ops.nms_cuda); with
+``nms_impl="pallas"`` it is decode -> per-class top-K -> the sorted CUDA
+suppression kernel (``nms_cuda.combined_nms_sorted``).  Training is
 ``train.Trainer``.
 
 The entry points run on the card: ``device="cuda"`` is the default and
@@ -20,13 +24,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import weights
+from . import evalmap, weights
 from .config import DEFAULT_CONFIG, YoloConfig
-from .device import resolve_device
+from .device import resolve_device, to_device_async
 from .models import head, network
 from .ops.detect import detect_fused
 from .ops.nms import combined_nms
+from .ops.nms_cuda import combined_nms_sorted
+from .data.pipeline import letterbox_resize
 from .train import Trainer, tree_map
+from .utils.stream import threaded_map
 from .utils.visualize import draw_bbox, get_detection_data
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -39,12 +46,12 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype):
     ``images`` is (B, H, W, 3) NHWC on the folded params' device: float in
     [0, 1], or uint8 in [0, 255], divided by 255 on the device.
     """
-    if cfg.nms_impl == "pallas":
-        raise NotImplementedError(
-            "nms_impl='pallas' needs the port of nms_pallas._suppress_kernel "
-            "(ROADMAP.md queue B item 2); use 'fast' or 'xla'")
-    if cfg.nms_impl not in ("fast", "xla"):
+    if cfg.nms_impl not in ("fast", "xla", "pallas"):
         raise ValueError(f"unknown nms_impl {cfg.nms_impl!r}")
+    # "pallas" (the JAX package's name) is per-class top-K + the sorted
+    # suppression kernel; "xla" the plain exact combined NMS.
+    exact_nms = (combined_nms_sorted if cfg.nms_impl == "pallas"
+                 else combined_nms)
     anchors = cfg.anchors_grouped
     strides, xyscale, img_size = cfg.strides, cfg.xyscale, cfg.img_size
 
@@ -65,7 +72,7 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype):
         outs = head.decode_head(raws, anchors, num_classes, strides, xyscale)
         boxes, scores = head.flatten_boxes_scores(outs, img_size[0],
                                                   num_classes)
-        return combined_nms(
+        return exact_nms(
             boxes, scores, iou_threshold=iou_t, score_threshold=score_t,
             max_per_class=cfg.max_boxes, max_total=cfg.max_boxes,
             pre_top_k=cfg.nms_pre_top_k)
@@ -163,14 +170,46 @@ class Yolov4:
     # Inference
     # ------------------------------------------------------------------
     def preprocess_img(self, img):
-        """Stretch resize to the model size + /255 (reference models.py:95-98)."""
+        """Resize + /255 (reference models.py:95-98): stretch by default,
+        aspect-preserving gray letterbox when config.letterbox is set."""
+        return self._preprocess_with_transform(img)[0]
+
+    def _preprocess_with_transform(self, img):
+        """(model-space float img, letterbox transform or None)."""
         import cv2
         if self.config.letterbox:
-            raise NotImplementedError(
-                "letterbox preprocessing is not ported yet "
-                "(ROADMAP.md queue A item 9)")
+            out, _, t = letterbox_resize(np.asarray(img), self.img_size[:2],
+                                         np.zeros((0, 5), np.float32))
+            return out, (t, self.img_size[:2])
         h, w = self.img_size[:2]  # cv2.resize takes dsize as (width, height)
-        return cv2.resize(np.asarray(img), (w, h)) / 255.0
+        return cv2.resize(np.asarray(img), (w, h)) / 255.0, None
+
+    def _batch_from_rgb(self, raws):
+        """The streaming loader's batch (``predict_paths``): RGB rasters ->
+        (images on the model's device, per-image letterbox transforms).
+
+        With config.transfer_uint8 (and no letterbox) it ships the resized
+        uint8 rasters, divided by 255 on the device: the same raster bytes
+        the float path divides, as it resizes in uint8 before dividing.
+        Letterbox keeps the float wire (its gray padding is float).  The
+        caller runs this in its producer thread: the copy to the card comes
+        from pinned memory without blocking, so batch N+1's copy overlaps
+        batch N's inference.  Unlike the JAX package's, the batch is not
+        padded to a fixed size (``predict_batch`` does not pad).
+        """
+        import cv2
+        h, w = self.img_size[:2]
+        u8_wire = self.config.transfer_uint8 and not self.config.letterbox
+        imgs = np.zeros((len(raws), h, w, 3),
+                        np.uint8 if u8_wire else np.float32)
+        transforms = []
+        for j, raw in enumerate(raws):
+            if u8_wire:
+                imgs[j], t = cv2.resize(np.asarray(raw), (w, h)), None
+            else:
+                imgs[j], t = self._preprocess_with_transform(raw)
+            transforms.append(t)
+        return to_device_async(imgs, self.device), transforms
 
     def _raw(self, images):
         with torch.inference_mode():
@@ -200,18 +239,45 @@ class Yolov4:
         imgs = imgs.to(self.device)
         return self._infer_fn(self._folded, imgs, iou_t, score_t)
 
-    def _detections(self, raw_img, img, iou_threshold=None,
-                    score_threshold=None):
+    def predict_paths(self, img_paths, bs: int = 8,
+                      iou_threshold: Optional[float] = None,
+                      score_threshold: Optional[float] = None):
+        """Streaming batched inference over image files.
+
+        Yields ``(path, detections_DataFrame)`` per image, in order.  Host
+        decode and resize of the next batch run in a producer thread
+        (utils.stream.threaded_map) while the card runs the current one.
+        """
+        img_paths = list(img_paths)
+
+        def load(paths):
+            raws = [_imread(p)[:, :, ::-1] for p in paths]
+            imgs, transforms = self._batch_from_rgb(raws)
+            return paths, imgs, raws, transforms
+
+        chunks = [img_paths[s:s + bs] for s in range(0, len(img_paths), bs)]
+        for paths, imgs, raws, transforms in threaded_map(load, chunks):
+            outs = [o.cpu().numpy() for o in self.predict_batch(
+                imgs, iou_threshold, score_threshold)]
+            for k, path in enumerate(paths):
+                yield path, get_detection_data(
+                    img=raws[k], model_outputs=[o[k:k + 1] for o in outs],
+                    class_names=self.class_names,
+                    letterbox_transform=transforms[k])
+
+    def _detections(self, raw_img, iou_threshold=None, score_threshold=None):
+        img, transform = self._preprocess_with_transform(raw_img)
         out = self.predict_batch(np.expand_dims(img, axis=0), iou_threshold,
                                  score_threshold)
         return get_detection_data(img=raw_img,
                                   model_outputs=[o.cpu().numpy() for o in out],
-                                  class_names=self.class_names)
+                                  class_names=self.class_names,
+                                  letterbox_transform=transform)
 
     def predict_img(self, raw_img, random_color=True, plot_img=True,
                     figsize=(10, 10), show_text=True, return_output=False):
         """Single-image inference + drawing (reference models.py:109-123)."""
-        detections = self._detections(raw_img, self.preprocess_img(raw_img))
+        detections = self._detections(raw_img)
         output_img = draw_bbox(raw_img, detections, cmap=self.class_color,
                                random_color=random_color, figsize=figsize,
                                show_text=show_text, show_img=plot_img)
@@ -263,11 +329,33 @@ class Yolov4:
         """Inference with caller-supplied NMS thresholds
         (reference models.py:516-529; BGR input, as there)."""
         raw_img = _imread(img_path)
-        detections = self._detections(raw_img, self.preprocess_img(raw_img),
-                                      iou_threshold, score_threshold)
+        detections = self._detections(raw_img, iou_threshold, score_threshold)
         draw_bbox(raw_img, detections, cmap=self.class_color,
                   random_color=True)
         return detections
+
+    # ------------------------------------------------------------------
+    # mAP evaluation pipeline
+    # ------------------------------------------------------------------
+    def export_gt(self, annotation_path: str, gt_folder_path: str):
+        evalmap.export_gt(annotation_path, gt_folder_path, self.class_names)
+
+    def export_prediction(self, annotation_path: str, pred_folder_path: str,
+                          img_folder_path: str, bs: int = 2,
+                          verbose: bool = True):
+        evalmap.export_prediction(
+            self.predict_batch, annotation_path, pred_folder_path,
+            img_folder_path, self.img_size[:2], self.class_names, bs=bs,
+            verbose=verbose, letterbox=self.config.letterbox,
+            transfer_uint8=self.config.transfer_uint8,
+            place_fn=lambda imgs: to_device_async(imgs, self.device))
+
+    def eval_map(self, gt_folder_path: str, pred_folder_path: str,
+                 temp_json_folder_path: str, output_files_path: str,
+                 plot: bool = True, verbose: bool = True):
+        return evalmap.eval_map(gt_folder_path, pred_folder_path,
+                                temp_json_folder_path, output_files_path,
+                                plot=plot, verbose=verbose)
 
 
 def _imread(path: str):

@@ -3,9 +3,10 @@
 Same fields and defaults as ``yolov4tpu.config.YoloConfig``, so one set of
 hyperparameters describes a model in either package.  The defaults
 reproduce the tf.keras reference's ``yolo_config`` (reference config.py).
-Fields whose feature has not been ported yet (training, letterbox, int8)
-are kept so configurations move between the packages unchanged; the entry
-points that would read them raise ``NotImplementedError`` (see ROADMAP.md).
+Fields whose feature has not been ported yet (training-time letterbox and
+augmentations, int8, the mesh) are kept so configurations move between the
+packages unchanged; the entry points that would read them raise
+``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ class YoloConfig:
     pallas_wgrad: bool = False
 
     # Aspect-preserving letterbox resize instead of the reference's stretch
-    # resize.  Not ported yet: the port's preprocessing raises if it is set.
+    # resize, for inference and the mAP export (DataGenerator raises if it
+    # is set: training-time letterbox is not ported yet).
     letterbox: bool = False
 
     # --- Host ingest ---
@@ -78,7 +80,9 @@ class YoloConfig:
     # NMS implementation: "fast" = global candidate reduction + the CUDA
     # suppression kernel (ops.nms_cuda), "xla" = the plain-torch exact
     # per-class combined NMS (ops.nms; named after the JAX package's
-    # option), "pallas" = per-class top-k + kernel (not ported yet).
+    # option), "pallas" = per-class top-k + the sorted CUDA suppression
+    # kernel (ops.nms_cuda.combined_nms_sorted; named after the JAX
+    # package's option, exact for any number of boxes above the threshold).
     nms_impl: str = "fast"
 
     def __post_init__(self):

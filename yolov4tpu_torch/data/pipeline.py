@@ -12,10 +12,13 @@ Counterpart of ``yolov4tpu.data.pipeline`` on its python path
     the JAX package's bit for bit;
   - a background prefetch thread that overlaps host decode with the step.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md queue A
-item 15): mosaic, cutmix, horizontal flip, colour jitter, letterbox,
-multi-scale and the native C++ ingest.  Samples load one after another in
-the calling thread (the JAX package's thread pool gives the same batches).
+The letterbox geometry (``letterbox_transform``, ``letterbox_resize``,
+``letterbox_unmap``) serves inference and the mAP export.  Not ported yet
+in ``DataGenerator`` (each raises ``NotImplementedError`` naming ROADMAP.md
+queue A item 15): mosaic, cutmix, horizontal flip, colour jitter,
+training-time letterbox, multi-scale and the native C++ ingest.  Samples
+load one after another in the calling thread (the JAX package's thread pool
+gives the same batches).
 """
 
 from __future__ import annotations
@@ -31,6 +34,54 @@ from ..config import DEFAULT_CONFIG, YoloConfig
 from .encode import preprocess_true_boxes
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue A item 15)"
+
+
+def letterbox_transform(raw_hw, target_hw):
+    """(scale, dx, dy): raw -> model coords are x*scale+dx, y*scale+dy."""
+    ih, iw = raw_hw
+    h, w = target_hw
+    s = min(w / iw, h / ih)
+    nw, nh = int(round(iw * s)), int(round(ih * s))
+    return s, (w - nw) // 2, (h - nh) // 2
+
+
+def letterbox_resize(img: np.ndarray, target_hw, boxes: np.ndarray):
+    """Aspect-preserving resize onto a gray canvas + box remap.
+
+    img: HWC uint8/float RGB; boxes: (M, 5) corner px + class.
+    Returns (float32 HWC in [0,1], remapped boxes, (scale, dx, dy)).
+    """
+    import cv2
+
+    ih, iw = img.shape[:2]
+    h, w = target_hw
+    s, dx, dy = letterbox_transform((ih, iw), (h, w))
+    nw, nh = int(round(iw * s)), int(round(ih * s))
+    canvas = np.full((h, w, 3), 0.5, np.float32)
+    canvas[dy:dy + nh, dx:dx + nw] = (
+        cv2.resize(np.ascontiguousarray(img), (nw, nh)).astype(np.float32)
+        / 255.0)
+    if len(boxes):
+        boxes = boxes.astype(np.float32).copy()
+        boxes[:, [0, 2]] = boxes[:, [0, 2]] * s + dx
+        boxes[:, [1, 3]] = boxes[:, [1, 3]] * s + dy
+    return canvas, boxes, (s, dx, dy)
+
+
+def letterbox_unmap(boxes_norm: np.ndarray, transform, model_hw, raw_hw):
+    """Normalised model-space corner boxes -> raw-image pixel coordinates.
+
+    transform: the (scale, dx, dy) from letterbox_transform/letterbox_resize.
+    The one inverse mapping, used by inference postprocess and the mAP
+    export alike.
+    """
+    s, dx, dy = transform
+    mh, mw = model_hw
+    rh, rw = raw_hw
+    out = np.asarray(boxes_norm, np.float32).copy()
+    out[..., [0, 2]] = np.clip((out[..., [0, 2]] * mw - dx) / s, 0, rw)
+    out[..., [1, 3]] = np.clip((out[..., [1, 3]] * mh - dy) / s, 0, rh)
+    return out
 
 
 def read_image_rgb(img_path: str) -> np.ndarray:
@@ -77,7 +128,7 @@ class DataGenerator:
                     "cutmix": cutmix or config.use_cutmix,
                     "hflip": config.use_hflip,
                     "colour jitter": config.use_color_jitter,
-                    "letterbox": config.letterbox,
+                    "training-time letterbox": config.letterbox,
                     "multi-scale": config.multi_scale is not None,
                     "the native C++ ingest (use_native=True)": use_native}
         for name, on in unported.items():

@@ -1,15 +1,25 @@
-"""Candidate NMS with the hand-written CUDA suppression kernel.
+"""Combined NMS with the hand-written CUDA suppression kernels.
 
-Counterpart of ``yolov4tpu.ops.nms_pallas`` (the fast path).  The pipeline:
+Counterpart of ``yolov4tpu.ops.nms_pallas``.  Two pipelines, one per TPU
+kernel:
 
-  torch: per-class rank matrices over the K candidates (stable sorts);
-  CUDA:  greedy suppression in each class's rank order with the per-class
-         cap inside the loop (csrc/suppress_rank.cu);
-  torch: global top-``max_total`` merge in candidate order.
+- the fast path (``combined_nms_fast``, ``nms_impl="fast"``):
+    torch: one global top-K of candidates, per-class rank matrices;
+    CUDA:  greedy suppression in each class's rank order with the per-class
+           cap inside the loop (csrc/suppress_rank.cu);
+    torch: global top-``max_total`` merge in candidate order.
+- the sorted path (``combined_nms_sorted``, ``nms_impl="pallas"``; the
+  counterpart of ``combined_nms_pallas``):
+    torch: per-class top-K over all N boxes, the (B, C, K, 4) box gather;
+    CUDA:  greedy suppression over each class's score-sorted candidates
+           (csrc/suppress.cu);
+    torch: per-class cap and global top-``max_total`` merge
+           (``ops.nms.finalize``, shared with the exact path).
 
-``suppress_rank`` launches the kernel on a CUDA tensor and runs its plain
-torch version, ``suppress_rank_reference``, on a CPU tensor; nothing else
-chooses between them.  The kernel is built at first use by ``ops.build``.
+Each kernel's wrapper (``suppress_rank``, ``suppress``) launches it on a
+CUDA tensor and runs its plain torch version (``suppress_rank_reference``,
+``suppress_reference``) on a CPU tensor; nothing else chooses between them.
+The kernels are built at first use by ``ops.build``.
 """
 
 from __future__ import annotations
@@ -21,13 +31,14 @@ import numpy as np
 import torch
 
 from . import build as kbuild
-from .nms import _finish, top_k
+from .nms import _finish, finalize, per_class_top_k, top_k
 
 MAX_K = 1024  # one thread per candidate, one block per (class, image)
 
-# Launches of the CUDA kernel; chip_smoke.py reads it to show the main path
-# went through the kernel.
+# Launches of each CUDA kernel (suppress_rank's and suppress's);
+# chip_smoke.py reads them to show the main path went through the kernels.
 LAUNCHES = 0
+SUPPRESS_LAUNCHES = 0
 
 
 @functools.lru_cache(maxsize=1)
@@ -214,3 +225,151 @@ def combined_nms_fast(boxes, scores, iou_threshold: float = 0.413,
         scores, 1, cand_idx[..., None].expand(bsz, k, num_classes))
     return nms_from_candidates(cand_boxes, cand_scores, iou_threshold,
                                score_threshold, max_per_class, max_total, clip)
+
+
+# ---------------------------------------------------------------------------
+# The sorted path: per-class top-K, csrc/suppress.cu, cap and merge
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def _suppress_library():
+    lib = ctypes.CDLL(str(kbuild.build("suppress")))
+    fn = lib.suppress_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_sorted(coords, valid):
+    if coords.dtype != torch.float32 or valid.dtype != torch.float32:
+        raise TypeError("coords and valid must be float32")
+    if coords.dim() != 4 or coords.shape[1] != 4:
+        raise ValueError(f"coords must be (B, 4, C, K), got "
+                         f"{tuple(coords.shape)}")
+    b, _, c, k = coords.shape
+    if tuple(valid.shape) != (b, c, k):
+        raise ValueError(f"valid must be (B, C, K) = ({b}, {c}, {k}), got "
+                         f"{tuple(valid.shape)}")
+    if coords.device != valid.device:
+        raise ValueError("coords and valid must be on one device")
+    if k > MAX_K:
+        raise ValueError(f"K={k} candidates exceeds the suppress kernel's "
+                         f"limit of {MAX_K}")
+
+
+def _loop_bounds(valid):
+    """Each image's loop bound, as the Pallas kernel computes it
+    (nms_pallas.py:56): the largest valid count of any class, truncated to
+    int32.  (B,) int32."""
+    return valid.sum(dim=-1).amax(dim=-1).to(torch.int32)
+
+
+def suppress(coords, valid, iou_threshold: float):
+    """Greedy per-class NMS over score-sorted candidates.
+
+    coords (B, 4, C, K) float32 corner planes (x1, y1, x2, y2; lo <= hi) of
+    each class's candidates in descending-score order, valid (B, C, K)
+    float32 0/1 -> keep (B, C, K) float32: ``valid`` with 0 wherever a live
+    earlier candidate of the class overlaps by IoU > ``iou_threshold``.
+    Each image loops to its largest per-class valid count, as the TPU
+    kernel does, so any 0/1 mask gives the TPU kernel's result.  K is at
+    most 1024 (one thread per candidate), on either device.
+
+    A CUDA tensor launches the kernel (and raises if the launch fails); a
+    CPU tensor runs ``suppress_reference``.
+    """
+    global SUPPRESS_LAUNCHES
+    _check_sorted(coords, valid)
+    if coords.device.type == "cpu":
+        return suppress_reference(coords, valid, iou_threshold)
+    if coords.device.type != "cuda":
+        raise ValueError(f"suppress runs on cuda or cpu tensors, not "
+                         f"{coords.device}")
+    b, _, c, k = coords.shape
+    coords, valid = coords.contiguous(), valid.contiguous()
+    keep = torch.empty_like(valid)
+    if keep.numel() == 0:
+        return keep
+    nmax = _loop_bounds(valid)
+    launch = _suppress_library()
+    with torch.cuda.device(coords.device):
+        err = launch(coords.data_ptr(), valid.data_ptr(), nmax.data_ptr(),
+                     keep.data_ptr(), b, c, k, float(iou_threshold),
+                     torch.cuda.current_stream(coords.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"suppress kernel launch failed: CUDA error {err}")
+    SUPPRESS_LAUNCHES += 1
+    return keep
+
+
+def suppress_reference(coords, valid, iou_threshold: float):
+    """Plain-torch version of the kernel, vectorised over (B, C).
+
+    Mirrors the Pallas body (nms_pallas.py:46-82) line by line, with the
+    pivot taken by index instead of a masked sum (equal for finite
+    coordinates).  Steps run to the batch's largest loop bound; a step past
+    an image's own bound changes nothing in it.
+    """
+    # The threshold rounded to float32 first, as the JAX and CUDA versions
+    # compare against a float32 threshold.
+    iou_t = float(np.float32(iou_threshold))
+    alive = valid.clone()
+    if alive.numel() == 0:
+        return alive
+    x1, y1, x2, y2 = coords.unbind(dim=1)                      # (B, C, K)
+    area = (x2 - x1) * (y2 - y1)
+    nmax = _loop_bounds(valid)[:, None, None]                  # (B, 1, 1)
+    col = torch.arange(valid.shape[-1], device=valid.device)
+    for i in range(int(nmax.max())):
+        px1, py1, px2, py2 = (p[..., i:i + 1] for p in (x1, y1, x2, y2))
+        parea = area[..., i:i + 1]
+        palive = alive[..., i:i + 1]                           # (B, C, 1)
+
+        iw = torch.clamp(torch.minimum(px2, x2) - torch.maximum(px1, x1), min=0.0)
+        ih = torch.clamp(torch.minimum(py2, y2) - torch.maximum(py1, y1), min=0.0)
+        inter = iw * ih
+        union = parea + area - inter
+        iou = torch.where(union > 0.0, inter / union, torch.zeros_like(inter))
+
+        suppress_ = ((iou > iou_t) & (col > i) & (palive > 0.5)
+                     & (i < nmax))
+        alive = torch.where(suppress_, torch.zeros_like(alive), alive)
+    return alive
+
+
+def sorted_inputs(boxes, scores, score_threshold: float, pre_top_k: int):
+    """Stage 1 of the sorted path: boxes (B, N, 4), scores (B, N, C) ->
+    each class's top-``pre_top_k`` scores (B, C, K) and boxes (B, C, K, 4),
+    and the kernel's inputs: corner planes (B, 4, C, K) with lo <= hi and
+    the valid mask (B, C, K)."""
+    top_scores, top_boxes = per_class_top_k(boxes, scores, pre_top_k)
+    # Canonical corner order, as the exact path and TF treat degenerate boxes.
+    lo = torch.minimum(top_boxes[..., :2], top_boxes[..., 2:])
+    hi = torch.maximum(top_boxes[..., :2], top_boxes[..., 2:])
+    coords = torch.stack([lo[..., 0], lo[..., 1], hi[..., 0], hi[..., 1]],
+                         dim=1).contiguous()                    # (B,4,C,K)
+    valid = (top_scores > score_threshold).to(torch.float32)
+    return top_scores, top_boxes, coords, valid
+
+
+def combined_nms_sorted(boxes, scores, iou_threshold: float = 0.413,
+                        score_threshold: float = 0.3, max_per_class: int = 100,
+                        max_total: int = 100, pre_top_k: int = 256,
+                        clip: bool = True):
+    """Batched combined NMS with the suppression kernel over each class's
+    own score-sorted candidates: the counterpart of
+    ``yolov4tpu.ops.nms_pallas.combined_nms_pallas`` (``nms_impl="pallas"``).
+
+    Same contract as ``ops.nms.combined_nms``, and exact for any number of
+    boxes above the threshold (unlike ``combined_nms_fast``): boxes
+    (B, N, 4) corner format, scores (B, N, C) -> (nmsed_boxes (B,T,4),
+    nmsed_scores (B,T), nmsed_classes (B,T), valid_detections (B,)),
+    T = max_total.
+    """
+    top_scores, top_boxes, coords, valid = sorted_inputs(
+        boxes, scores, score_threshold, pre_top_k)
+    keep = suppress(coords, valid, iou_threshold)
+    return finalize(top_scores, top_boxes, keep > 0.5, max_per_class,
+                    max_total, clip)

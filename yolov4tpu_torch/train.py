@@ -24,7 +24,7 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from .config import YoloConfig
-from .device import resolve_device
+from .device import resolve_device, to_device_async
 from .losses import yolo_loss
 from .models import network
 
@@ -444,14 +444,7 @@ class Trainer:
         b = _batch_size(batch)
         if self.config.grad_accum_steps != 1 or not aligned_batch(b):
             return batch
-
-        def copy(x):
-            t = torch.as_tensor(x)
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=True)
-
-        return tree_map(copy, batch)
+        return tree_map(lambda x: to_device_async(x, self.device), batch)
 
     def train_step(self, batch) -> dict:
         """Run one optimizer step; never drops samples.  A non-aligned batch

@@ -1,7 +1,6 @@
 """Detection post-processing to DataFrame + drawing (reference utils.py:56-118).
 
-A copy of ``yolov4tpu.utils.visualize`` without the letterbox unmapping,
-which waits for the letterbox port.
+A copy of ``yolov4tpu.utils.visualize``.
 """
 
 from __future__ import annotations
@@ -10,21 +9,33 @@ import numpy as np
 import pandas as pd
 
 
-def get_detection_data(img, model_outputs, class_names):
+def get_detection_data(img, model_outputs, class_names,
+                       letterbox_transform=None):
     """Model NMS outputs -> pandas DataFrame (reference utils.py:56-78).
 
     model_outputs: (boxes, scores, classes, valid_detections) batched numpy
     arrays; entry 0 of the batch is used.  Boxes are normalised [0,1]; they
     are scaled to the raw image's size.  Columns: [x1, y1, x2, y2,
     class_name, score, w, h], as in the reference.
+
+    letterbox_transform: ((scale, dx, dy), (model_h, model_w)) when the image
+    was letterboxed: boxes are then unpadded and unscaled back to raw
+    coordinates instead of plain stretching.
     """
     num_bboxes = int(np.asarray(model_outputs[-1])[0])
     boxes, scores, classes = [np.asarray(o)[0][:num_bboxes]
                               for o in model_outputs[:-1]]
     h, w = img.shape[:2]
-    df = pd.DataFrame(boxes, columns=["x1", "y1", "x2", "y2"])
-    df[["x1", "x2"]] = (df[["x1", "x2"]] * w).astype("int64")
-    df[["y1", "y2"]] = (df[["y1", "y2"]] * h).astype("int64")
+    if letterbox_transform is not None:
+        from ..data.pipeline import letterbox_unmap
+        transform, model_hw = letterbox_transform
+        boxes = letterbox_unmap(boxes, transform, model_hw, (h, w))
+        df = pd.DataFrame(boxes.astype("int64"),
+                          columns=["x1", "y1", "x2", "y2"])
+    else:
+        df = pd.DataFrame(boxes, columns=["x1", "y1", "x2", "y2"])
+        df[["x1", "x2"]] = (df[["x1", "x2"]] * w).astype("int64")
+        df[["y1", "y2"]] = (df[["y1", "y2"]] * h).astype("int64")
     df["class_name"] = np.array(class_names)[classes.astype("int64")]
     df["score"] = scores
     df["w"] = df["x2"] - df["x1"]
