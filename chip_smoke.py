@@ -34,21 +34,24 @@ exits non-zero without printing a result:
      the card's own detections (mAP exactly 1.0);
   4. the weight-gradient kernel against its plain version at the nine
      shapes of the 37 3x3 stride-1 convs of the training path at 416^2, b8,
-     in float32 and bfloat16, plus a delta input (exactly equal) and a
-     ragged shape; its times beside its bound, its plain version and
-     cuDNN's wgrad (``torch.nn.grad.conv2d_weight``, a yardstick the port
-     never calls);
+     in float32 (CUDA cores) and bfloat16 (tensor cores), plus delta inputs
+     in both types (exactly equal), ragged and padded-channel shapes, views
+     with a storage offset and two launches bit-equal; its bf16 times per
+     shape (route and tile) beside its bound, its plain version and cuDNN's
+     wgrad (``torch.nn.grad.conv2d_weight``, a yardstick the port never
+     calls), and the per-step ratio of kernel to cuDNN;
   5. the training path through the user's entry points: ``Yolov4`` with
      ``pallas_wgrad=True`` in bfloat16 at full depth, 416x416, COCO-80,
      random darknet weights from a seed, ``fit`` for 2 epochs over a
      ``DataGenerator`` of 16 JPEGs the script writes (b8).  The kernel's
-     launch count is zeroed just before and read just after (37 per step).
+     launch counts are zeroed just before and read just after (37 per step,
+     every one on the tensor-core route).
      Then: ``predict_batch`` on the trained weights, the loss falling over
      10 steps on one batch, the device label encoder's first loss equal to
      the host encoder's, float32 gradients with the kernel against cuDNN's
      wgrad on the card and against the port on the CPU (b2), and the train
      step's time split and img/s at b8 and b32, with and without the
-     kernel.
+     kernel, in turns.
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -69,6 +72,8 @@ import sys
 import time
 
 import numpy as np
+
+from yolov4tpu_torch.tools.measure import cuda_ms, graph_ms, wgrad_shapes
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SCRATCH = ROOT / "build" / "chip_smoke"
@@ -104,25 +109,6 @@ def scene(seed: int, batch: int, size: int = 416) -> np.ndarray:
     smooth = np.repeat(np.repeat(coarse, 16, axis=1), 16, axis=2)
     return np.clip(smooth + rng.normal(0, 25, smooth.shape), 0,
                    255).astype(np.uint8)
-
-
-def cuda_ms(fn, n: int, repeats: int = 5, warmup: int = 2) -> float:
-    """Median over ``repeats`` of the mean time of ``n`` calls, in ms, from
-    CUDA events around the calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return statistics.median(times)
 
 
 def suppress_bound_ms(coords, sc, rank, keep, score_threshold: float):
@@ -634,7 +620,9 @@ def eval_phase(torch, nms_cuda, wpath, params, folder, card):
 # rounding of such sums is ~sqrt(chain) * 2^-24 of the magnitudes summed,
 # below 1e-5 of the largest |entry| at these shapes; 1e-4 leaves a margin
 # of ten and still fails any wrong tap, shift or edge by orders of
-# magnitude.  bfloat16 operands are widened exactly, so the same holds.
+# magnitude.  On the tensor-core route the products of bfloat16 operands
+# are exact in float32 and the mma accumulates them in float32 (with its
+# own rounding inside each 16-deep step), so the same bound holds.
 WGRAD_TOL = 1e-4
 # Float32 training, card vs the port on the CPU: the training forward's
 # one-pass BatchNorm moments (E[y^2] - E[y]^2 in float32, over up to
@@ -651,29 +639,6 @@ WGRAD_TOL = 1e-4
 CPU_LOSS_TOL = 2e-4
 HEAD_GRAD_TOL = 1e-3
 NOISE_EPS = 1e-6
-
-
-def wgrad_shapes(side: int = 416, num_classes: int = 80, csp_repeats=None):
-    """Counter of (H, Ci, Co) over the 3x3 stride-1 convs of the training
-    forward (the convs pallas_wgrad routes through the kernel)."""
-    from yolov4tpu_torch.models import network, topology
-
-    class Trace(network._InitOps):
-        def __init__(self):
-            super().__init__(None)
-            self.s1 = collections.Counter()
-
-        def conv(self, x, filters, kernel_size, downsampling=False,
-                 activation="leaky", batch_norm=True):
-            if kernel_size == 3 and not downsampling:
-                self.s1[(x.h, x.c, filters)] += 1
-            return super().conv(x, filters, kernel_size, downsampling,
-                                activation, batch_norm)
-
-    trace = Trace()
-    topology.yolov4(trace, network._ShapeVal(side, side, 3), num_classes,
-                    csp_repeats or topology.DEFAULT_CSP_REPEATS)
-    return trace.s1
 
 
 def wgrad_bound_ms(b, h, w, ci, co, itemsize):
@@ -714,8 +679,10 @@ def wgrad_check(torch, wgrad_cuda, x, dy, label, exact=False):
 
 def wgrad_phase(torch, wgrad_cuda, shapes):
     """Phase 4a: the kernel against its plain version at the training
-    path's shapes (b8, float32 and bfloat16), a delta input and a ragged
-    shape.  Returns the largest abs error at the main path's b8 bf16."""
+    path's shapes (b8, float32 and bfloat16), delta inputs (exactly equal),
+    ragged and padded-channel shapes, views with a storage offset, and two
+    launches bit-equal.  Returns the largest abs error at the main path's
+    b8 bf16."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst_bf16 = 0.0
     for (h, ci, co), n in sorted(shapes.items(), key=lambda kv: -kv[0][0]):
@@ -728,51 +695,89 @@ def wgrad_phase(torch, wgrad_cuda, shapes):
             log(f"wgrad kernel vs plain: b8 {h}x{h} {ci}->{co} "
                 f"({n} convs) {str(dtype)[6:]}: max abs err {err:.3g} "
                 f"({rel:.2g} of the largest entry, limit {WGRAD_TOL})")
-    for corner in ((0, 0), (12, 12), (0, 12)):
-        x = torch.zeros((1, 13, 13, 8), device="cuda")
-        dy = torch.zeros((1, 13, 13, 8), device="cuda")
-        x[0, corner[0], corner[1], 0] = 1.0
-        dy[0, corner[0], corner[1], 0] = 1.0
-        wgrad_check(torch, wgrad_cuda, x, dy, f"delta {corner}", exact=True)
-        got = wgrad_cuda.wgrad_3x3_s1(x, dy)
-        check(float(got[1, 1, 0, 0]) == 1.0 and float(got.abs().sum()) == 1.0,
-              f"delta {corner}: an edge tap did not see zero padding")
-    log("wgrad kernel vs plain: delta inputs at three corners of 13x13: "
-        "exactly equal, only the centre tap set")
     for dtype in (torch.float32, torch.bfloat16):
-        x, dy = wgrad_pair(torch, gen, 3, 13, 17, 96, 80, dtype)
-        err, rel = wgrad_check(torch, wgrad_cuda, x, dy, f"ragged {dtype}")
-        log(f"wgrad kernel vs plain: ragged B=3 13x17 96->80 "
-            f"{str(dtype)[6:]}: max abs err {err:.3g} ({rel:.2g})")
+        for corner in ((0, 0), (12, 12), (0, 12)):
+            x = torch.zeros((1, 13, 13, 8), device="cuda", dtype=dtype)
+            dy = torch.zeros((1, 13, 13, 8), device="cuda", dtype=dtype)
+            x[0, corner[0], corner[1], 0] = 1.0
+            dy[0, corner[0], corner[1], 0] = 1.0
+            wgrad_check(torch, wgrad_cuda, x, dy, f"delta {corner} {dtype}",
+                        exact=True)
+            got = wgrad_cuda.wgrad_3x3_s1(x, dy)
+            check(float(got[1, 1, 0, 0]) == 1.0
+                  and float(got.abs().sum()) == 1.0,
+                  f"delta {corner} {dtype}: an edge tap did not see zero "
+                  f"padding")
+        log(f"wgrad kernel vs plain: delta inputs at three corners of 13x13 "
+            f"{str(dtype)[6:]}: exactly equal, only the centre tap set")
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, w, ci, co in ((3, 13, 17, 96, 80), (2, 13, 17, 3, 20),
+                                (3, 13, 17, 5, 7)):
+            x, dy = wgrad_pair(torch, gen, b, h, w, ci, co, dtype)
+            err, rel = wgrad_check(torch, wgrad_cuda, x, dy,
+                                   f"B={b} {h}x{w} {ci}->{co} {dtype}")
+            log(f"wgrad kernel vs plain: ragged B={b} {h}x{w} {ci}->{co} "
+                f"{str(dtype)[6:]}: max abs err {err:.3g} ({rel:.2g})")
+        # Views with a storage offset: one batch further into a larger
+        # tensor (16-byte aligned), and one element in (not aligned).
+        x, dy = wgrad_pair(torch, gen, 3, 26, 26, 64, 64, dtype)
+        flat_x = torch.randn(x.numel() + 1, generator=gen,
+                             device="cuda").to(dtype)
+        flat_dy = torch.randn(dy.numel() + 1, generator=gen,
+                              device="cuda").to(dtype)
+        views = {"batch offset": (x[1:], dy[1:]),
+                 "one element in": (flat_x[1:].view(x.shape),
+                                    flat_dy[1:].view(dy.shape))}
+        for name, (xv, dyv) in views.items():
+            err, rel = wgrad_check(torch, wgrad_cuda, xv, dyv,
+                                   f"view {name} {dtype}")
+            log(f"wgrad kernel vs plain: view with storage offset "
+                f"{xv.storage_offset()} ({name}), {tuple(xv.shape)} "
+                f"{str(dtype)[6:]}: max abs err {err:.3g} ({rel:.2g})")
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy = wgrad_pair(torch, gen, 8, 52, 52, 128, 128, dtype)
+        first = wgrad_cuda.wgrad_3x3_s1(x, dy)
+        second = wgrad_cuda.wgrad_3x3_s1(x, dy)
+        check(torch.equal(first, second), f"wgrad {dtype}: two launches on "
+              f"the same inputs differ")
+        log(f"wgrad kernel: two launches on b8 52x52 128->128 "
+            f"{str(dtype)[6:]} are bit-equal")
     return worst_bf16
 
 
 def wgrad_times(torch, wgrad_cuda, shapes, card):
     """Phase 4b: per shape at b8 bf16, the kernel, its plain version and
     cuDNN's wgrad (library yardstick) against the bound; and the sums over
-    one training step's launches."""
+    one training step's launches.  Kernel and cuDNN times are device times
+    (``graph_ms``); their eager times, host launch cost included, are
+    printed beside them."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     step = collections.Counter()
     bound_by = {"operations": 0.0, "bytes": 0.0}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (h, ci, co), n in sorted(shapes.items(), key=lambda kv: -kv[0][0]):
         x, dy = wgrad_pair(torch, gen, 8, h, h, ci, co, torch.bfloat16)
         xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-        ms = cuda_ms(lambda: wgrad_cuda.wgrad_3x3_s1(x, dy), n=5)
+        kernel = lambda: wgrad_cuda.wgrad_3x3_s1(x, dy)
+        cudnn = lambda: torch.nn.grad.conv2d_weight(
+            xn, (co, ci, 3, 3), dyn, padding=1)
+        ms, lib = graph_ms(kernel), graph_ms(cudnn)
+        eager, lib_eager = cuda_ms(kernel, n=20), cuda_ms(cudnn, n=20)
         plain = cuda_ms(lambda: wgrad_cuda.wgrad_3x3_s1_reference(x, dy),
                         n=1, repeats=3, warmup=1)
-        lib = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
-            xn, (co, ci, 3, 3), dyn, padding=1), n=5)
         bound, by = wgrad_bound_ms(8, h, h, ci, co, 2)
-        tile, splits, chunk = wgrad_cuda.plan(
-            8, h, h, ci, co,
-            torch.cuda.get_device_properties(0).multi_processor_count)
+        tile, splits, chunk = wgrad_cuda.plan(8, h, h, ci, co, sms,
+                                              torch.bfloat16)
         log(f"wgrad b8 bf16 {h}x{h} {ci}->{co} x{n}: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, cuDNN {lib:.4f} ms, bound {bound:.5f} ms "
-            f"({by}); kernel at {bound / ms:.2%} of bound, "
-            f"{2 * 9 * 8 * h * h * ci * co / ms / 1e9:.1f} TFLOP/s; tile "
-            f"{tile}, {splits} splits of {chunk} px ({card})")
+            f"({by}); eager launches: kernel {eager:.4f} ms, cuDNN "
+            f"{lib_eager:.4f} ms; kernel at {bound / ms:.2%} of bound, "
+            f"{2 * 9 * 8 * h * h * ci * co / ms / 1e9:.1f} TFLOP/s; route "
+            f"tensor cores (mma.sync), tile {tile}x{tile}, {splits} splits "
+            f"of {chunk} px ({card})")
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", bound)):
+                       ("bound_ms", bound), ("eager_ms", eager),
+                       ("library_eager_ms", lib_eager)):
             step[key] += n * v
         bound_by[by] += n * bound
     step["launches"] = sum(shapes.values())
@@ -780,7 +785,9 @@ def wgrad_times(torch, wgrad_cuda, shapes, card):
     log(f"wgrad per b8 bf16 step ({step['launches']} launches): kernel "
         f"{step['ms']:.3f} ms, plain {step['plain_ms']:.3f} ms, cuDNN "
         f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.4f} ms "
-        f"({by}) ({card})")
+        f"({by}); kernel / cuDNN {step['ms'] / step['library_ms']:.3f}; "
+        f"eager launches: kernel {step['eager_ms']:.3f} ms, cuDNN "
+        f"{step['library_eager_ms']:.3f} ms ({card})")
     return dict(step, bound_by=by)
 
 
@@ -835,22 +842,26 @@ def train_phase(torch, wgrad_cuda, wpath, folder, lines, card, shapes):
     per_step = sum(shapes.values())
 
     wgrad_cuda.LAUNCHES = 0
+    wgrad_cuda.TC_LAUNCHES = 0
     t0 = time.perf_counter()
     history = model.fit(gen, epochs=2, verbose=False)
     torch.cuda.synchronize()
     launches = wgrad_cuda.LAUNCHES
+    tc_launches = wgrad_cuda.TC_LAUNCHES
     fit_s = time.perf_counter() - t0
     trainer = model.trainer()
     steps = trainer.global_step
     check(steps == 2 * len(gen), f"fit ran {steps} steps, not {2 * len(gen)}")
     check(launches == per_step * steps, f"wgrad launched {launches} times in "
           f"{steps} steps, not {per_step} per step")
+    check(tc_launches == launches, f"only {tc_launches} of the bf16 fit's "
+          f"{launches} wgrad launches took the tensor-core route")
     check(all(np.isfinite(h["loss"]) for h in history),
           f"non-finite loss in {history}")
     check(trainer.params["convs"][0]["w"].is_cuda, "params are not on the card")
     log(f"main path (training): fit 2 epochs x {len(gen)} steps at b8 bf16, "
         f"pallas_wgrad: wgrad launched {launches} times ({per_step} per "
-        f"step), epoch losses {[round(h['loss'], 3) for h in history]}, "
+        f"step), {tc_launches} on the tensor-core route, epoch losses {[round(h['loss'], 3) for h in history]}, "
         f"{fit_s:.1f} s with JPEG decode and the first steps' set-up "
         f"({card})")
 
@@ -983,8 +994,9 @@ def step_split(torch, trainer, batch):
 
 def rate_phase(torch, params0, state0, folder, lines, card):
     """Phase 5c: train-step img/s at bf16 b8 and b32 with and without the
-    kernel (host clock around steps that end in a synchronize, batches
-    already on the card), and the time split of one step."""
+    kernel, in turns (kernel, cuDNN, cuDNN, kernel; host clock around steps
+    that end in a synchronize, batches already on the card), and the time
+    split of one step."""
     from yolov4tpu_torch import train
     from yolov4tpu_torch.config import DEFAULT_CONFIG
     from yolov4tpu_torch.data.pipeline import DataGenerator
@@ -996,7 +1008,7 @@ def rate_phase(torch, params0, state0, folder, lines, card):
     for bsz in (8, 32):
         batch = train.tree_map(
             lambda x: np.concatenate([x] * (bsz // 8)), b8)
-        for flag in (True, False):
+        for flag in (True, False, False, True):
             cfg = dataclasses.replace(base, pallas_wgrad=flag,
                                       batch_size=bsz)
             trainer = train.Trainer(cfg, 80, params0, state0)
@@ -1013,7 +1025,7 @@ def rate_phase(torch, params0, state0, folder, lines, card):
             rate = iters * bsz / (time.perf_counter() - t0)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             split = step_split(torch, trainer, batch)
-            rates[(bsz, flag)] = rate
+            rates.setdefault((bsz, flag), []).append(rate)
             log(f"train step bf16 b{bsz} pallas_wgrad={flag}: {rate:.1f} "
                 f"img/s ({1e3 * bsz / rate:.1f} ms a step); split "
                 f"forward+loss {split[0]:.1f} ms, backward {split[1]:.1f} ms,"
@@ -1213,7 +1225,12 @@ def main() -> int:
                 "launches": wlaunches, "max_abs_err": wgrad_err,
                 "ms": wg["ms"], "plain_ms": wg["plain_ms"],
                 "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"],
-                "library_ms": wg["library_ms"]}]
+                "library_ms": wg["library_ms"],
+                # ms and library_ms are device times (graph_ms); these are
+                # eager launches, host launch cost included, as earlier
+                # slices timed them.
+                "eager_ms": wg["eager_ms"],
+                "library_eager_ms": wg["library_eager_ms"]}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -134,18 +134,36 @@ def test_conv3x3_s1_dw_from_any_dy_layout():
 
 @pytest.mark.parametrize("shape", [
     (8, 416, 416, 3, 32), (8, 13, 13, 512, 1024), (8, 52, 52, 128, 128),
-    (32, 416, 416, 3, 32), (3, 13, 17, 5, 7), (1, 1, 1, 1, 1)])
+    (32, 416, 416, 3, 32), (3, 13, 17, 5, 7), (1, 1, 1, 1, 1),
+    (8, 208, 208, 32, 64), (8, 104, 104, 64, 64), (8, 52, 52, 128, 256),
+    (8, 26, 26, 256, 256), (8, 26, 26, 256, 512), (8, 13, 13, 512, 512),
+    (32, 13, 13, 512, 1024), (2, 13, 17, 3, 20)])
 def test_plan_covers_every_pixel(shape):
-    """The split-K plan: every pixel in exactly one split, splits within
-    the grid's z limit, chunks on 16-pixel K-step boundaries, and the tile
-    the kernel has for these channel counts."""
+    """The split-K plan of each route: every pixel in exactly one split,
+    splits within the grid's z limit, chunks on K-step boundaries (16
+    pixels on the float32 route, 32 on the bfloat16 tensor-core route),
+    and the tile the kernel has for these channel counts (padded to
+    multiples of 8 on the tensor-core route).  On the tensor-core route a
+    split also takes at least 8 K steps when K is split and at most 256
+    (the mma's float32 chains stay short), and the grid goes past one wave
+    of resident blocks (2 a SM for the 128 tile, 4 for the 64) only where
+    the output tiles or the cap on the chains need it."""
     b, h, w, ci, co = shape
-    tile, splits, chunk = wgrad_cuda.plan(b, h, w, ci, co, sms=132)
     k = b * h * w
-    assert tile in (64, 128) and chunk % 16 == 0
-    assert 1 <= splits <= 65535
-    assert (splits - 1) * chunk < k <= splits * chunk
-    assert tile == (128 if ci >= 128 and co >= 128 else 64)
+    for dtype, step, (cip, cop) in (
+            (torch.float32, 16, (ci, co)),
+            (torch.bfloat16, 32, (-(-ci // 8) * 8, -(-co // 8) * 8))):
+        tile, splits, chunk = wgrad_cuda.plan(b, h, w, ci, co, 132, dtype)
+        assert tile in (64, 128) and chunk % step == 0
+        assert 1 <= splits <= 65535
+        assert (splits - 1) * chunk < k <= splits * chunk
+        assert tile == (128 if cip >= 128 and cop >= 128 else 64)
+    assert splits == 1 or chunk >= 8 * 32
+    assert chunk <= 256 * 32
+    tiles = -(-(9 * cip) // tile) * -(-cop // tile)
+    slots = {128: 2, 64: 4}[tile] * 132
+    fewest = -(-(-(-k // 32)) // 256)
+    assert tiles * splits <= max(tiles, slots) or splits == fewest
 
 
 def test_wrapper_rejects_mismatched_inputs():

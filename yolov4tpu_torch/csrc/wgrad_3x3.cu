@@ -1,7 +1,7 @@
 // Weight gradient of a 3x3 stride-1 SAME convolution, for sm_90a.
 //
-// Replaces yolov4tpu/ops/wgrad_pallas.py::_wgrad_kernel (the Pallas TPU
-// kernel behind conv3x3_s1's backward).  It computes
+// Replaces yolov4tpu/ops/wgrad_pallas.py::_wgrad_kernel (wgrad_pallas.py:48,
+// the Pallas TPU kernel behind conv3x3_s1's backward).  It computes
 //
 //   dw[ky, kx, ci, co] = sum_{b, y, x} x[b, y+ky-1, x+kx-1, ci] * dy[b, y, x, co]
 //
@@ -16,29 +16,64 @@
 // memory.  C row-major is the HWIO layout.
 //
 // What bounds it on this card: the nine shapes of YOLOv4 at 416^2 do
-// 2-64 GFLOP each at batch 8 over 1-35 MB of operands, far above the H100's
-// ~295 operations per byte for bf16 tensor cores and ~20 for float32 CUDA
-// cores: the work is operations, not bytes.  This first kernel uses the
-// float32 CUDA cores (fmaf; no TF32, float32 operands stay full float32,
-// bfloat16 operands are widened exactly), so its ceiling is the 67 TFLOP/s
-// float32 rate, ~15x below the 989 TFLOP/s bf16 tensor-core bound that the
-// kernel is held to.  wgmma/TMA tiles are later work.
+// 2-13 GFLOP each at batch 8 over 1-97 MB of operands.  Against the H100's
+// ~295 operations per byte for bf16 tensor cores the six shapes with
+// Ci, Co >= 128 are bound by operations (989 TFLOP/s), the three narrow
+// ones (416^2 3->32, 208^2 32->64, 104^2 64->64) by bytes (3.35 TB/s).
+// Against the ~20 operations per byte of the float32 CUDA cores every
+// shape is bound by operations (67 TFLOP/s).
 //
-// What the design does about the shapes:
-//  - Output tiles are few (13^2 x 512 -> 1024 is 36 x 8 tiles of 128^2 over
-//    only 1,352 pixels per image; 52^2 x 128 -> 128 is 9 tiles), so each
+// Two routes, chosen by the operand type:
+//
+// bfloat16 -- tensor cores (wgrad_tc).  Bound: 989 TFLOP/s, or the bytes of
+//   x and dy for the narrow shapes.  Design:
+//  - warp-level mma.sync.m16n8k16 (bf16 in, float32 accumulators in
+//    registers); a block tile of 128x128 (8 warps of 64x32) where both
+//    channel counts reach 128, else 64x64 (4 warps of 32x32);
+//  - a K step is 32 pixels; each stage of a 4-deep shared-memory ring holds
+//    A as [32][BM] and B as [32][BN] bf16, filled by 16-byte cp.async.cg
+//    copies with zero-fill (src-size 0) where the shifted pixel leaves the
+//    image, the pixel is at or past the split's end, or the column is past
+//    M or N; a masked copy still names a valid address (the tensor's base);
+//  - a 16-byte chunk is 8 channels of one tap, so Ci and Co must be
+//    multiples of 8 (the wrapper pads them with zeros); each thread's chunk
+//    column, its tap and channel, are fixed before the K loop, and its two
+//    pixel rows move 32 pixels a step by running offsets, without a
+//    multiply or divide;
+//  - the copies for step k + 3 are issued after the first 16-deep half of
+//    step k's mma's, so they overlap the tensor-core work instead of
+//    following the barrier;
+//  - both operands are stored M- or N-contiguous, transposed to what
+//    mma.sync's row.col wants, so fragments come from ldmatrix.x4.trans;
+//    rows are 128 or 256 bytes, so the 16-byte chunk index is XORed with
+//    (k row % 8) in the copies and in ldmatrix's addresses, and the eight
+//    rows one ldmatrix phase reads fall on distinct banks;
+//  - the mma's float32 accumulation rounds toward zero, so its error grows
+//    with the chain summed into one partial: the wrapper caps a split at
+//    256 K steps.
+//   What still holds it back (PERF.md, tools/wgrad_probe.py): the
+//   ldmatrix + mma loop alone runs about three times as fast as the whole
+//   kernel; the rest is feeding it, i.e. the copies' issue and address
+//   work, the barrier a step, and the split partials' traffic.  wgmma and
+//   TMA would lift the ceiling further; mma.sync is the simpler step,
+//   without descriptors or mbarrier pipelines.
+//
+// float32 -- CUDA cores (wgrad_tiles).  Full float32, no TF32 (the float32
+// fidelity contract of the training path).  Bound: 67 TFLOP/s.  Design:
+// register tiles of 8x8 (128 tile) or 4x4 (64 tile) outputs a thread fed
+// from shared memory, fmaf; operands staged through registers one K step
+// ahead of the compute.
+//
+// Shared by both routes:
+//  - Output tiles are few (52^2 x 128 -> 128 is 9 tiles of 128^2), so each
 //    block also takes one slice of the K pixel range (split-K) and the grid
-//    is (N tiles, M tiles, splits) sized by the wrapper to fill the 132 SMs.
+//    is (N tiles, M tiles, splits), sized by the wrapper to fill the 132
+//    SMs.  Blocks of one split are adjacent in launch order, so they share
+//    their x and dy rows through L2.
 //  - Each split writes its float32 partial tile to a workspace; a second
 //    kernel sums the splits in a fixed order.  The result is deterministic
-//    (no atomics) and a split count of 1 writes the result directly.
-//  - A 128x128 tile with 8x8 outputs per thread for Ci, Co >= 128 (most of
-//    the FLOPs); a 64x64 tile with 4x4 per thread for the narrow shapes
-//    (the 416^2 stem is M = 27, N = 32), where a 128 tile would be mostly
-//    padding.
-//  - Per K step each thread stages four A and four B values (one pixel, four
-//    consecutive columns) in registers, loaded while the block computes on
-//    the previous step's shared-memory tile.
+//    (no atomics; two launches are bit-equal) and a split count of 1 writes
+//    the result directly.
 //  - Pixel and element offsets are 64-bit: K reaches 1.38 M pixels at b8
 //    and 5.5 M at b32 for 416^2.
 #include <cuda_bf16.h>
@@ -48,9 +83,6 @@
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 constexpr int kThreads = 256;
 
@@ -168,6 +200,228 @@ wgrad_tiles(const T* __restrict__ x, const T* __restrict__ dy,
     }
 }
 
+// ---------------------------------------------------------------------------
+// The bfloat16 route: tensor cores through mma.sync, fed by a cp.async ring.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcStep = 32;    // pixels (GEMM K) per K step
+constexpr int kTcStages = 4;   // depth of the shared-memory ring
+// Blocks of each tile one SM holds at once (__launch_bounds__' minimum);
+// the wrapper's plan sizes its waves by them (wgrad_tc_config).
+constexpr int kTcBlocks128 = 2, kTcBlocks64 = 4;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; ok == false writes 16 zero bytes
+// and reads nothing (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices, transposed: lanes 8j..8j+7 name the eight rows of
+// matrix j; register j of lane l holds (row 2*(l%4) and 2*(l%4)+1, col l/4).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, col-major).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte chunk `c` of K row `k` in a ring stage whose rows
+// hold kChunks chunks: the chunk index is XORed with k % 8, so the eight
+// rows that one ldmatrix phase reads at one logical chunk hit eight
+// distinct 16-byte bank groups.
+template <int kChunks>
+__device__ __forceinline__ uint32_t swizzle(int k, int c) {
+  return (uint32_t)((k * kChunks + (c ^ (k & 7))) * 16);
+}
+
+template <int BM, int WM, int WN>
+struct TcShape {
+  static constexpr int BN = BM;
+  static constexpr int kWarpsN = BN / WN;
+  static constexpr int kThreads = (BM / WM) * kWarpsN * 32;
+  static constexpr int kChunks = BM / 8;               // 16-byte chunks a row
+  static constexpr int kRowStep = kThreads / kChunks;  // rows a load pass
+  static constexpr int kRows = kTcStep / kRowStep;     // rows a thread loads
+  static constexpr int kStageBytes = kTcStep * (BM + BN) * 2;
+  static constexpr int kSmemBytes = kTcStages * kStageBytes;
+};
+
+// One block: tile (M rows m0.., N cols n0..) over pixels [z*chunk, ...),
+// chunk a multiple of kTcStep.  Ci and Co are multiples of 8.
+template <int BM, int WM, int WN, int kMinBlocks>
+__global__ void __launch_bounds__(TcShape<BM, WM, WN>::kThreads, kMinBlocks)
+wgrad_tc(const __nv_bfloat16* __restrict__ x,
+         const __nv_bfloat16* __restrict__ dy, float* __restrict__ part,
+         int H, int W, int Ci, int Co, int64_t K, int64_t chunk) {
+  using S = TcShape<BM, WM, WN>;
+  constexpr int kMT = WM / 16, kNT = WN / 8;  // m16 and n8 tiles a warp
+  static_assert(kNT % 2 == 0, "B fragments load two n8 tiles at a time");
+  static_assert(S::kRows * S::kRowStep == kTcStep, "whole K rows a pass");
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int M = 9 * Ci;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * S::BN;
+  const int64_t kbeg = (int64_t)blockIdx.z * chunk;
+  const int64_t kend = kbeg + chunk < K ? kbeg + chunk : K;
+  const int nk = (int)((kend - kbeg + kTcStep - 1) / kTcStep);
+
+  // Loader: this thread copies chunk column cc of A and of B for K rows
+  // r0, r0 + kRowStep, ...  The A column's (tap, ci) is fixed for the whole
+  // K loop.  Each row keeps its element offsets into x (at the shifted
+  // pixel) and dy, the pixels left in the split, and its pixel's (y, x);
+  // a K step moves all of them 32 pixels on without a multiply or divide.
+  const int cc = tid % S::kChunks, r0 = tid / S::kChunks;
+  const int am = m0 + cc * 8, bn = n0 + cc * 8;
+  const bool a_ok = am < M, b_ok = bn < Co;
+  const int tap = a_ok ? am / Ci : 4;
+  const int a_ci = a_ok ? am - tap * Ci : 0;
+  const int a_dy = tap / 3 - 1, a_dx = tap % 3 - 1;
+  const int step_y = kTcStep / W, step_x = kTcStep % W;
+  int64_t oa[S::kRows], ob[S::kRows];
+  int left[S::kRows], py[S::kRows], px[S::kRows];
+#pragma unroll
+  for (int j = 0; j < S::kRows; ++j) {
+    const int64_t p = kbeg + r0 + j * S::kRowStep;
+    const int64_t q = p < K ? p : 0;
+    py[j] = (int)((q / W) % H);
+    px[j] = (int)(q % W);
+    left[j] = (int)(kend - p);
+    oa[j] = (p + (int64_t)a_dy * W + a_dx) * Ci + a_ci;
+    ob[j] = p * Co + bn;
+  }
+
+  const uint32_t ring = smem_addr(smem);
+  auto load = [&](int stage) {
+    const uint32_t sa = ring + stage * S::kStageBytes;
+    const uint32_t sb = sa + kTcStep * BM * 2;
+#pragma unroll
+    for (int j = 0; j < S::kRows; ++j) {
+      const int row = r0 + j * S::kRowStep;
+      const bool aok = left[j] > 0 && a_ok &&
+                       (unsigned)(py[j] + a_dy) < (unsigned)H &&
+                       (unsigned)(px[j] + a_dx) < (unsigned)W;
+      const bool bok = left[j] > 0 && b_ok;
+      cp_async16(sa + swizzle<S::kChunks>(row, cc), aok ? x + oa[j] : x, aok);
+      cp_async16(sb + swizzle<S::kChunks>(row, cc), bok ? dy + ob[j] : dy,
+                 bok);
+      // The next K step: 32 pixels on, wrapping rows and images.
+      oa[j] += kTcStep * Ci;
+      ob[j] += kTcStep * Co;
+      left[j] -= kTcStep;
+      px[j] += step_x;
+      py[j] += step_y;
+      if (px[j] >= W) {
+        px[j] -= W;
+        ++py[j];
+      }
+      while (py[j] >= H) py[j] -= H;
+    }
+  };
+
+  // Warp tile: rows wm0.., cols wn0.. of the block tile.
+  const int wm0 = (warp / S::kWarpsN) * WM, wn0 = (warp % S::kWarpsN) * WN;
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kTcStages - 2>();  // step kt has landed
+    __syncthreads();                 // and every warp is done with kt - 1
+    const uint32_t sa = ring + (kt % kTcStages) * S::kStageBytes;
+    const uint32_t sb = sa + kTcStep * BM * 2;
+#pragma unroll
+    for (int kk = 0; kk < kTcStep; kk += 16) {
+      // A (16 m x 16 k): matrices (m 0-7, k 0-7), (m 8-15, k 0-7),
+      // (m 0-7, k 8-15), (m 8-15, k 8-15) are a0..a3 of m16n8k16.
+      uint32_t af[kMT][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        const int k = kk + (lane & 7) + ((lane >> 4) << 3);
+        const int c = (wm0 + i * 16) / 8 + ((lane >> 3) & 1);
+        ldmatrix_x4_trans(af[i], sa + swizzle<S::kChunks>(k, c));
+      }
+      // B (16 k x 16 n): matrices (k 0-7, n 0-7), (k 8-15, n 0-7),
+      // (k 0-7, n 8-15), (k 8-15, n 8-15) are b0, b1 of two n8 tiles.
+      uint32_t bf[kNT / 2][4];
+#pragma unroll
+      for (int j = 0; j < kNT / 2; ++j) {
+        const int k = kk + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int c = (wn0 + j * 16) / 8 + (lane >> 4);
+        ldmatrix_x4_trans(bf[j], sb + swizzle<S::kChunks>(k, c));
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          mma_bf16(acc[i][j], af[i], bf[j / 2][(j % 2) * 2],
+                   bf[j / 2][(j % 2) * 2 + 1]);
+      if (kk == 0) {
+        // The copies for step kt + 3 go out while the tensor cores work on
+        // the first half of step kt; their stage held step kt - 1, which
+        // every warp finished before the barrier above.
+        if (kt + kTcStages - 1 < nk) load((kt + kTcStages - 1) % kTcStages);
+        cp_async_commit();
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // c0, c1 at (row g, cols 2t, 2t+1) and c2, c3 at row g + 8 of each
+  // 16x8 tile; Co is even, so a pair is in or out together.
+  float* out = part + (int64_t)blockIdx.z * M * Co;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int m = m0 + wm0 + i * 16 + g, n = n0 + wn0 + j * 8 + t2;
+      if (n >= Co) continue;
+      if (m < M)
+        *reinterpret_cast<float2*>(out + (int64_t)m * Co + n) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (m + 8 < M)
+        *reinterpret_cast<float2*>(out + (int64_t)(m + 8) * Co + n) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
 // out[i] = sum over splits s = 0, 1, ... of part[s][i], in that order.
 __global__ void wgrad_reduce(const float* __restrict__ part,
                              float* __restrict__ out, int64_t n, int splits) {
@@ -190,13 +444,32 @@ void launch_tiles(const void* x, const void* dy, float* part, int H, int W,
       K, chunk);
 }
 
+template <int BM, int WM, int WN, int kMinBlocks>
+cudaError_t launch_tc(const void* x, const void* dy, float* part, int H,
+                      int W, int Ci, int Co, int64_t K, int64_t chunk,
+                      int splits, cudaStream_t stream) {
+  using S = TcShape<BM, WM, WN>;
+  auto kernel = wgrad_tc<BM, WM, WN, kMinBlocks>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const int M = 9 * Ci;
+  dim3 grid((Co + S::BN - 1) / S::BN, (M + BM - 1) / BM, splits);
+  kernel<<<grid, S::kThreads, S::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy), part, H, W, Ci, Co, K, chunk);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // x (B, H, W, Ci), dy (B, H, W, Co) NHWC-contiguous, both float32
-// (bf16 == 0) or both bfloat16 (bf16 == 1) -> out (9, Ci, Co) float32.
-// Split s of `splits` covers pixels [s*chunk, (s+1)*chunk); with splits > 1
-// `ws` holds splits * 9*Ci*Co floats.  tile is 128 or 64.  Returns the CUDA
-// error of the launches (0 on success).
+// (bf16 == 0, CUDA-core route) or both bfloat16 (bf16 == 1, tensor-core
+// route: Ci and Co multiples of 8, both pointers 16-byte aligned, chunk a
+// multiple of 32) -> out (9, Ci, Co) float32.  Split s of `splits` covers
+// pixels [s*chunk, (s+1)*chunk); with splits > 1 `ws` holds
+// splits * 9*Ci*Co floats.  tile is 128 or 64.  Returns the CUDA error of
+// the launches (0 on success).
 extern "C" int wgrad_3x3_launch(const void* x, const void* dy, float* ws,
                                 float* out, int B, int H, int W, int Ci,
                                 int Co, int64_t chunk, int splits, int tile,
@@ -204,14 +477,23 @@ extern "C" int wgrad_3x3_launch(const void* x, const void* dy, float* ws,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int64_t K = (int64_t)B * H * W;
   float* part = splits > 1 ? ws : out;
-  if (tile == 128) {
-    if (bf16) launch_tiles<__nv_bfloat16, 128, 8>(x, dy, part, H, W, Ci, Co, K, chunk, splits, stream);
-    else launch_tiles<float, 128, 8>(x, dy, part, H, W, Ci, Co, K, chunk, splits, stream);
-  } else if (tile == 64) {
-    if (bf16) launch_tiles<__nv_bfloat16, 64, 4>(x, dy, part, H, W, Ci, Co, K, chunk, splits, stream);
-    else launch_tiles<float, 64, 4>(x, dy, part, H, W, Ci, Co, K, chunk, splits, stream);
+  if (tile != 128 && tile != 64) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    if (Ci % 8 || Co % 8 || chunk % kTcStep ||
+        (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) %
+            16)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t e =
+        tile == 128
+            ? launch_tc<128, 64, 32, kTcBlocks128>(x, dy, part, H, W, Ci, Co,
+                                                   K, chunk, splits, stream)
+            : launch_tc<64, 32, 32, kTcBlocks64>(x, dy, part, H, W, Ci, Co, K,
+                                                 chunk, splits, stream);
+    if (e != cudaSuccess) return (int)e;
+  } else if (tile == 128) {
+    launch_tiles<float, 128, 8>(x, dy, part, H, W, Ci, Co, K, chunk, splits, stream);
   } else {
-    return (int)cudaErrorInvalidValue;
+    launch_tiles<float, 64, 4>(x, dy, part, H, W, Ci, Co, K, chunk, splits, stream);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
@@ -220,4 +502,12 @@ extern "C" int wgrad_3x3_launch(const void* x, const void* dy, float* ws,
   if (blocks > 4096) blocks = 4096;
   wgrad_reduce<<<blocks, 256, 0, stream>>>(ws, out, n, splits);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core route's K step in pixels, and the blocks of `tile` (128
+// or 64; 0 for another) that one SM holds at once.  The wrapper checks its
+// own copies of these against them when it loads the library.
+extern "C" void wgrad_tc_config(int tile, int* step, int* blocks_per_sm) {
+  *step = kTcStep;
+  *blocks_per_sm = tile == 128 ? kTcBlocks128 : tile == 64 ? kTcBlocks64 : 0;
 }

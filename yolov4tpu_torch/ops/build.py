@@ -3,7 +3,8 @@
 Every kernel source lives in ``yolov4tpu_torch/csrc/<name>.cu`` with a plain
 C interface.  ``build(name)`` compiles it into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, keyed by a hash of the
-source and the flags so an edit rebuilds it, and returns the library's path;
+source, the sources it includes by ``#include "..."`` and the flags so an
+edit of any of them rebuilds it, and returns the library's path;
 the wrappers load it with ``ctypes``.  nvcc's ptxas report (registers, shared
 memory, spills) is kept beside the library in a ``.log`` file.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,14 +35,34 @@ def nvcc() -> str:
                        "from source at first use and need the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def digest(src: Path) -> str:
+    """Hash of ``src``, of every file beside it that it includes by
+    ``#include "..."`` (recursively, each once) and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [src.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(text)
+        for inc in _LOCAL_INCLUDE.findall(text):
+            found = (path.parent / inc.decode()).resolve()
+            if found.is_file():
+                todo.append(found)
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (once per source hash) and return the
+    """Compile ``csrc/<name>.cu`` (once per ``digest``) and return the
     shared library's path.  Safe to call for several sources at once from
     threads: each build writes its own files."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{digest}.so"
+    so = BUILD_DIR / f"{name}-{digest(src)}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

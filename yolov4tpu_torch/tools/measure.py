@@ -1,0 +1,68 @@
+"""Timing on the card, and the training path's wgrad shapes: the helpers
+``chip_smoke.py`` and ``tools/wgrad_probe.py`` share."""
+
+from __future__ import annotations
+
+import collections
+import statistics
+
+import torch
+
+
+def cuda_ms(fn, n: int, repeats: int = 5, warmup: int = 2) -> float:
+    """Median over ``repeats`` of the mean time of ``n`` calls, in ms, from
+    CUDA events around the calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 20, repeats: int = 5) -> float:
+    """Device time of one call of ``fn``, in ms: ``n`` calls captured in a
+    CUDA graph (after warm-up on a side stream) and the graph's replays
+    timed by ``cuda_ms``, so the host's launch cost between calls is not
+    in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, n=1, repeats=repeats) / n
+
+
+def wgrad_shapes(side: int = 416, num_classes: int = 80, csp_repeats=None):
+    """Counter of (H, Ci, Co) over the 3x3 stride-1 convs of the training
+    forward (the convs pallas_wgrad routes through the kernel)."""
+    from ..models import network, topology
+
+    class Trace(network._InitOps):
+        def __init__(self):
+            super().__init__(None)
+            self.s1 = collections.Counter()
+
+        def conv(self, x, filters, kernel_size, downsampling=False,
+                 activation="leaky", batch_norm=True):
+            if kernel_size == 3 and not downsampling:
+                self.s1[(x.h, x.c, filters)] += 1
+            return super().conv(x, filters, kernel_size, downsampling,
+                                activation, batch_norm)
+
+    trace = Trace()
+    topology.yolov4(trace, network._ShapeVal(side, side, 3), num_classes,
+                    csp_repeats or topology.DEFAULT_CSP_REPEATS)
+    return trace.s1
