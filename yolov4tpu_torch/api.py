@@ -166,6 +166,25 @@ class Yolov4:
             "int8 post-training quantization is not ported yet "
             "(ROADMAP.md queue A item 10)")
 
+    def dequantize(self):
+        raise NotImplementedError(
+            "int8 post-training quantization, and so dequantize, is not "
+            "ported yet (ROADMAP.md queue A item 10)")
+
+    def distribute(self, num_devices: Optional[int] = None,
+                   axis: str = "batch"):
+        raise NotImplementedError(
+            "sharded inference across devices is not ported yet "
+            "(ROADMAP.md queue A item 14)")
+
+    def save_model(self, path: str):
+        raise NotImplementedError(
+            "saving a model is not ported yet (ROADMAP.md queue A item 13)")
+
+    def load_model(self, path: str):
+        raise NotImplementedError(
+            "loading a model is not ported yet (ROADMAP.md queue A item 13)")
+
     # ------------------------------------------------------------------
     # Inference
     # ------------------------------------------------------------------

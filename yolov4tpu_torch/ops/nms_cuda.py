@@ -16,6 +16,13 @@ kernel:
     torch: per-class cap and global top-``max_total`` merge
            (``ops.nms.finalize``, shared with the exact path).
 
+Both kernels run one block per (class, image) in two phases: every warp
+computes rows of a packed IoU bitmask (the pivots that can be live against
+the later candidates, one ballot a word), then one warp scans it a word at
+a time, stepping from live pivot to live pivot with ``ffs`` and shuffles
+and no barrier (the sources' headers say what bounds each).  ``keep``
+equals the plain version bit for bit.
+
 Each kernel's wrapper (``suppress_rank``, ``suppress``) launches it on a
 CUDA tensor and runs its plain torch version (``suppress_rank_reference``,
 ``suppress_reference``) on a CPU tensor; nothing else chooses between them.
@@ -33,7 +40,7 @@ import torch
 from . import build as kbuild
 from .nms import _finish, finalize, per_class_top_k, top_k
 
-MAX_K = 1024  # one thread per candidate, one block per (class, image)
+MAX_K = 1024  # 32 mask words: one per lane of the scanning warp
 
 # Launches of each CUDA kernel (suppress_rank's and suppress's);
 # chip_smoke.py reads them to show the main path went through the kernels.
@@ -275,7 +282,8 @@ def suppress(coords, valid, iou_threshold: float):
     earlier candidate of the class overlaps by IoU > ``iou_threshold``.
     Each image loops to its largest per-class valid count, as the TPU
     kernel does, so any 0/1 mask gives the TPU kernel's result.  K is at
-    most 1024 (one thread per candidate), on either device.
+    most 1024 (one mask word per lane of the scanning warp), on either
+    device.
 
     A CUDA tensor launches the kernel (and raises if the launch fails); a
     CPU tensor runs ``suppress_reference``.

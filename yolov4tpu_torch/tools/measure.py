@@ -45,6 +45,22 @@ def graph_ms(fn, n: int = 20, repeats: int = 5) -> float:
     return cuda_ms(graph.replay, n=1, repeats=repeats) / n
 
 
+def kernel_times(fn, calls: int = 20) -> dict:
+    """Device time per call of ``fn`` in each kernel it launches, in ms, by
+    the profiler's kernel name (``torch.profiler`` over ``calls`` calls
+    after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.device_time_total / calls / 1e3
+            for ev in prof.key_averages()
+            if getattr(ev, "device_time_total", 0)}
+
+
 def wgrad_shapes(side: int = 416, num_classes: int = 80, csp_repeats=None):
     """Counter of (H, Ci, Co) over the 3x3 stride-1 convs of the training
     forward (the convs pallas_wgrad routes through the kernel)."""

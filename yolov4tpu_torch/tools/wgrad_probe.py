@@ -30,7 +30,7 @@ import sys
 import torch
 
 from ..ops import build, wgrad_cuda
-from .measure import cuda_ms, graph_ms, wgrad_shapes
+from .measure import cuda_ms, graph_ms, kernel_times, wgrad_shapes
 
 BATCH = 8
 SPLIT_FACTORS = (0.25, 0.5, 0.75, 1, 1.5, 2)
@@ -38,20 +38,11 @@ SPLIT_FACTORS = (0.25, 0.5, 0.75, 1, 1.5, 2)
 
 def kernel_split(fn, calls: int = 10) -> str:
     """Device ms a call of ``fn`` spends in each kernel it launches."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     parts = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0)
-        if us:
-            name = ("tiles" if "wgrad_tc" in ev.key else "reduction"
-                    if "wgrad_reduce" in ev.key else "copies")
-            parts[name] = parts.get(name, 0.0) + us / calls / 1e3
+    for key, ms in kernel_times(fn, calls).items():
+        name = ("tiles" if "wgrad_tc" in key else "reduction"
+                if "wgrad_reduce" in key else "copies")
+        parts[name] = parts.get(name, 0.0) + ms
     return ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
 
 
