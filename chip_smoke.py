@@ -56,9 +56,23 @@ exits non-zero without printing a result:
      the host encoder's, float32 gradients with the kernel against cuDNN's
      wgrad on the card and against the port on the CPU (b2), and the train
      step's time split and img/s at b8 and b32, with and without the
-     kernel, in turns.
+     kernel, in turns;
+  6. persistence through the user's entry points, at the same size with
+     ``nms_impl="pallas"``: ``fit`` for 2 epochs with
+     ``CosineAnnealingScheduler``, ``CheckpointCallback`` and
+     ``EvalMapCallback`` (which runs the sorted kernel) and ``resume_dir``;
+     a fresh facade's ``fit(epochs=3)`` resuming at epoch 2 with the step
+     count and the LR continued; a fresh trainer restored from the
+     checkpoint bit-equal to the one that wrote it, before and after one
+     more step (cuDNN deterministic); ``save_model`` as .npz and .weights
+     reloaded by ``Yolov4(weight_path=...)`` and ``load_model``, their
+     float32 ``"fast"`` detections equal to the trained facade's; the file
+     against ``params_to_jax`` and a ``torch.distributed.checkpoint`` round
+     trip; the save, restore and load times and sizes, and an epoch's time
+     with and without ``resume_dir``.  The three kernels' launches in it
+     are counted into the summary.
 
-The line before the last is one JSON object with each kernel's launches,
+Each phase prints its seconds.  The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times (``device_ms`` from CUDA-graph
 replays beside the eager ``ms`` for the NMS kernels) and bound; the last
 line is
@@ -1169,6 +1183,330 @@ def rate_phase(torch, params0, state0, folder, lines, card):
 
 
 
+# ---------------------------------------------------------------------------
+# Persistence: checkpoints, resume, callbacks, save and reload
+# ---------------------------------------------------------------------------
+
+def trainer_state(trainer):
+    """Everything a train step reads, in order: params, BN state, Adam
+    moments and step counts; and (count, LR, global_step)."""
+    from yolov4tpu_torch import train
+    opt = trainer.optimizer
+    moments = [opt.opt.state[t][k] for t in opt.tensors
+               for k in ("exp_avg", "exp_avg_sq", "step")]
+    return (train.leaves(trainer.params) + train.leaves(trainer.state)
+            + moments), (opt.count, trainer.learning_rate,
+                         trainer.global_step)
+
+
+def first_difference(torch, a, b):
+    """(index, max abs difference, largest |entry|) of the first pair of
+    tensors that differ, or None when all are equal."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not torch.equal(x, y):
+            return (i, float((x.double() - y.double()).abs().max()),
+                    float(y.double().abs().max()))
+    return None
+
+
+def file_mb(path: pathlib.Path) -> float:
+    """Size of a file, or of every file under a directory, in MB."""
+    if path.is_dir():
+        return sum(p.stat().st_size for p in path.rglob("*")
+                   if p.is_file()) / 1e6
+    return path.stat().st_size / 1e6
+
+
+def timed(torch, fn):
+    """(seconds, result) of ``fn()`` on the host clock, the card drained
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def persistence_phase(torch, nms_cuda, wgrad_cuda, wpath, folder, lines,
+                      card, per_step):
+    """Phase 6: the persistence path through the user's entry points, at
+    full depth, 416^2, COCO-80, b8 bf16 with ``pallas_wgrad=True`` and
+    ``nms_impl="pallas"``: (a) ``fit`` with the three callbacks and
+    ``resume_dir``; (b) a "crashed" run's fresh facade resuming; (c) a
+    fresh trainer restored from the checkpoint against the trainer that
+    wrote it, bit for bit, before and after one step; (d) ``save_model``
+    as .npz and .weights, reloaded, serving equal detections through
+    ``nms_impl="fast"``; (e) the file against ``params_to_jax`` and a DCP
+    round trip; (f) the times and sizes users feel at every epoch end.
+    Returns the launches of the three kernels in (a)-(d)."""
+    import shutil
+
+    from yolov4tpu_torch import checkpoint as ckpt
+    from yolov4tpu_torch import train, weights
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.callbacks import (CheckpointCallback,
+                                           CosineAnnealingScheduler,
+                                           EvalMapCallback)
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+    from yolov4tpu_torch.models.network import params_to_jax
+
+    root = SCRATCH / "persist"
+    resume = SCRATCH / "resume"
+    for d in (root, resume):          # a rerun must not resume an old run
+        shutil.rmtree(d, ignore_errors=True)
+    root.mkdir(parents=True)
+    classes = str(underscored_classes())
+    anno = folder / "annotations.txt"
+    cfg = dataclasses.replace(DEFAULT_CONFIG, pallas_wgrad=True,
+                              compute_dtype="bfloat16", nms_impl="pallas")
+    gen = DataGenerator(lines, classes, str(folder), config=cfg, seed=0)
+    n_images = len(lines)
+    launches = {"wgrad": 0, "suppress": 0, "suppress_rank": 0}
+
+    def wgrad_counts():
+        return wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES
+
+    # --- a. fit with the callbacks and resume_dir ------------------------
+    t_phase = time.perf_counter()
+    model = Yolov4(weight_path=str(wpath), class_name_path=classes,
+                   config=cfg)
+    cosine = CosineAnnealingScheduler(1e-3, 1e-5, 4)
+    ck = CheckpointCallback(str(root / "ck_{epoch}.npz"), every=1)
+    evalmap = EvalMapCallback(model, str(anno), str(folder),
+                              str(root / "evalmap"), every=2, verbose=0)
+    wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+    nms_cuda.SUPPRESS_LAUNCHES = 0
+    history = model.fit(gen, epochs=2, callbacks=[cosine, ck, evalmap],
+                        verbose=False, resume_dir=str(resume))
+    torch.cuda.synchronize()
+    trainer = model.trainer()
+    steps = trainer.global_step
+    wl, tc = wgrad_counts()
+    sl = nms_cuda.SUPPRESS_LAUNCHES
+    calls = -(-n_images // 2)      # export_prediction's batches of 2
+    check(steps == 2 * len(gen), f"fit ran {steps} steps")
+    check(wl == per_step * steps and tc == wl, f"wgrad launched {wl} times "
+          f"({tc} on the tensor cores) in {steps} steps")
+    check(sl == calls, f"EvalMapCallback's evaluation launched the sorted "
+          f"kernel {sl} times in {calls} predict_batch calls")
+    check(cosine.history == [cosine.lr(0), cosine.lr(1)],
+          f"LR history {cosine.history}")
+    check(all(np.isfinite(h["loss"]) for h in history), f"loss {history}")
+    check(len(evalmap.history) == 1 and evalmap.history[0]["epoch"] == 1,
+          f"EvalMapCallback history {evalmap.history}")
+    for f in (root / "ck_0.npz", root / "ck_1.npz", resume / "latest.npz"):
+        check(f.exists(), f"{f} was not written")
+    launches["wgrad"] += wl
+    launches["suppress"] += sl
+    # Phase b overwrites latest.npz; c and e read the file phase a left.
+    after_a = root / "after_a.npz"
+    shutil.copyfile(resume / "latest.npz", after_a)
+    log(f"persistence a: fit 2 epochs x {len(gen)} steps with "
+        f"CosineAnnealingScheduler, CheckpointCallback and EvalMapCallback "
+        f"(mAP {evalmap.history[0]['mAP']!r}): wgrad launched {wl} times "
+        f"({per_step} a step, {tc} on the tensor cores), suppress {sl} "
+        f"times in the evaluation's {calls} predict_batch calls, LR "
+        f"history {cosine.history}, ck_0.npz, ck_1.npz and latest.npz "
+        f"written; {time.perf_counter() - t_phase:.1f} s ({card})")
+
+    # --- b. crash and resume ------------------------------------------------
+    t_phase = time.perf_counter()
+    crashed = Yolov4(weight_path=str(wpath), class_name_path=classes,
+                     config=cfg)
+    wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+    resumed = crashed.fit(gen, epochs=3, verbose=False,
+                          resume_dir=str(resume))
+    torch.cuda.synchronize()
+    t_b = crashed.trainer()
+    wl, tc = wgrad_counts()
+    lr2 = float(np.float32(cosine.lr(2)))
+    check([h["epoch"] for h in resumed] == [2],
+          f"the resumed fit ran epochs {[h['epoch'] for h in resumed]}")
+    check(t_b.global_step == steps + len(gen),
+          f"global_step {t_b.global_step} after resuming at {steps}")
+    check(t_b.learning_rate == lr2, f"resumed LR {t_b.learning_rate!r} != "
+          f"lr(2) {lr2!r}")
+    check(np.isfinite(resumed[0]["loss"]), f"loss {resumed}")
+    check(wl == per_step * len(gen) and tc == wl, f"wgrad launched {wl} "
+          f"times ({tc} on the tensor cores) in the resumed epoch")
+    launches["wgrad"] += wl
+    log(f"persistence b: a fresh facade's fit(epochs=3, resume_dir) resumed "
+        f"at epoch 2, trained {len(gen)} steps (global_step {steps} -> "
+        f"{t_b.global_step}), LR {t_b.learning_rate!r} == lr(2), loss "
+        f"{resumed[0]['loss']:.3f}, wgrad {wl} launches; "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    del crashed, t_b
+    torch.cuda.empty_cache()
+
+    # --- c. exact restore on the card (and e's file check) -------------
+    t_phase = time.perf_counter()
+    p0, s0 = weights.load_darknet_weights(str(wpath), 80)
+    fresh = train.Trainer(cfg, 80, p0, s0)
+    check(fresh.restore_checkpoint(str(after_a)) == 2, "restore did not "
+          "return epoch 2")
+    (ta, sa), (tb, sb) = trainer_state(trainer), trainer_state(fresh)
+    check(sa == sb, f"count, LR, global_step {sb} after restore != {sa}")
+    diff = first_difference(torch, tb, ta)
+    check(len(ta) == len(tb) and diff is None,
+          f"restored state differs from the writer's: {diff}")
+    check(all(x is y for x, y in zip(fresh.optimizer.tensors,
+                                     train.leaves(fresh.params))),
+          "the optimizer lost its parameters")
+    # e: the file holds params_to_jax of the trainer that wrote it.
+    want, _ = params_to_jax(trainer.params, trainer.state)
+    with np.load(after_a) as data:
+        for i, conv in enumerate(want["convs"]):
+            for k, v in conv.items():
+                check(np.array_equal(data[f"params/convs/{i}/{k}"], v),
+                      f"latest.npz params/convs/{i}/{k} != params_to_jax")
+    loaded, _, step, extra = ckpt.load_npz(str(after_a))
+    check(step == steps and extra == {"epoch": 1}, f"meta {step} {extra}")
+    check(all(train.leaves(train.tree_map(
+        lambda a, b: torch.equal(a.cpu(), b), trainer.params, loaded))),
+        "load_npz(latest.npz) != the trainer's params")
+    log(f"persistence c: a fresh trainer restored from latest.npz holds the "
+        f"writer's {len(ta)} tensors bit for bit (params, BN state, Adam "
+        f"moments and steps), count, LR and global_step {sa}; e: the file's "
+        f"arrays == params_to_jax(trainer.params), load_npz == the params")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    batch = gen.get_batch(0)
+    wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+    loss_a = float(trainer.train_step(batch)["loss"])
+    loss_b = float(fresh.train_step(batch)["loss"])
+    wl, tc = wgrad_counts()
+    check(wl == 2 * per_step and tc == wl, f"wgrad launched {wl} times in "
+          f"two steps")
+    launches["wgrad"] += wl
+    (ta, sa), (tb, sb) = trainer_state(trainer), trainer_state(fresh)
+    diff = first_difference(torch, tb, ta)
+    if diff is None and loss_a == loss_b:
+        log(f"persistence c: one more train_step each (cudnn deterministic): "
+            f"bit-equal, loss {loss_a!r}")
+    else:
+        # Which op is not deterministic: the gradient core twice on the
+        # same inputs, and its first differing gradient.
+        core = train._make_grad_and_metrics(80, cfg)
+        placed = trainer._place(train.tree_map(torch.as_tensor, batch))
+        g1 = train.leaves(core(trainer.params, trainer.state, placed)[0])
+        g2 = train.leaves(core(trainer.params, trainer.state, placed)[0])
+        log(f"persistence c: after one step each the states differ: "
+            f"losses {loss_a!r} / {loss_b!r}, first tensor {diff}; the "
+            f"gradient core twice on one input: first differing leaf "
+            f"{first_difference(torch, g1, g2)}")
+        worst = max((float((x.double() - y.double()).abs().max())
+                     / max(float(y.double().abs().max()), 1e-30))
+                    for x, y in zip(tb, ta))
+        check(worst <= 1e-6, f"restored trainer's step off by {worst} of "
+              f"the largest entry (limit 1e-6)")
+        log(f"persistence c: largest deviation {worst:.3g} of the largest "
+            f"entry (limit 1e-6)")
+    torch.backends.cudnn.deterministic = False
+    log(f"persistence c: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+    # --- d. save, reload, serve ---------------------------------------------
+    t_phase = time.perf_counter()
+    serve = dataclasses.replace(DEFAULT_CONFIG, nms_impl="fast")
+    model.config = serve
+    model.sync_params(model.params, model.state)
+    f32 = scene(6, 8).astype(np.float32) / 255.0
+    with torch.inference_mode():
+        raws = model._raw(torch.from_numpy(f32).cuda())
+    # Head biases calibrated as in phase 3, so the trained model detects.
+    params, _ = weights.calibrate_detection_density(model.params, raws, 80,
+                                                    spread=1.0)
+    model.sync_params(params, model.state)
+    npz, dark = root / "trained.npz", root / "trained.weights"
+    save_s = {}
+    for path in (npz, dark):
+        save_s[path.suffix], _ = timed(torch,
+                                       lambda: model.save_model(str(path)))
+    load_s, from_npz = timed(torch, lambda: Yolov4(
+        weight_path=str(npz), class_name_path=classes, config=serve,
+        device="cuda"))
+    from_weights = Yolov4(class_name_path=classes, config=serve)
+    from_weights.load_model(str(dark))
+    nms_cuda.LAUNCHES = 0
+    outs = [m.predict_batch(f32) for m in (model, from_npz, from_weights)]
+    torch.cuda.synchronize()
+    rl = nms_cuda.LAUNCHES
+    check(rl == len(outs), f"suppress_rank launched {rl} times in "
+          f"{len(outs)} predict_batch calls")
+    launches["suppress_rank"] += rl
+    check(int(outs[0][3].min()) > 0, f"the trained model detects nothing: "
+          f"{outs[0][3].tolist()}")
+    for name, out in (("Yolov4(weight_path=.npz)", outs[1]),
+                      ("load_model(.weights)", outs[2])):
+        check(all(torch.equal(a, b) for a, b in zip(out, outs[0])),
+              f"{name}: detections differ from the trained facade's")
+    log(f"persistence d: save_model .npz and .weights, reloaded by "
+        f"Yolov4(weight_path=.npz) and load_model(.weights): f32 'fast' "
+        f"detections equal the trained facade's exactly (valid "
+        f"{outs[0][3].tolist()}), suppress_rank launched {rl} times; "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+
+    # --- e. DCP round trip --------------------------------------------------
+    t_phase = time.perf_counter()
+    dcp_dir = root / "dcp"
+    dcp_save, _ = timed(torch, lambda: ckpt.save_dcp(
+        str(dcp_dir), trainer.params, trainer.state, step=trainer.global_step))
+    dcp_load, (dp, ds) = timed(torch, lambda: ckpt.load_dcp(
+        str(dcp_dir), trainer.global_step))
+    check(ckpt.latest_dcp_step(str(dcp_dir)) == trainer.global_step,
+          "latest_dcp_step does not find the DCP checkpoint")
+    check(first_difference(torch, train.leaves((dp, ds)),
+                           train.leaves((trainer.params, trainer.state)))
+          is None and all(t.device.type == trainer.device.type
+                          for t in train.leaves(dp)),
+          "DCP round trip is not bit-equal on the card")
+    log(f"persistence e: save_dcp / load_dcp of the trained params and BN "
+        f"state on the card bit-equal, latest_dcp_step "
+        f"{trainer.global_step}; {time.perf_counter() - t_phase:.1f} s")
+
+    # --- f. what users wait for at every epoch end ---------------------------
+    t_phase = time.perf_counter()
+    full = root / "full.npz"
+    ck_save, _ = timed(torch, lambda: trainer.save_checkpoint(str(full), 3))
+    ck_restore, _ = timed(torch, lambda: fresh.restore_checkpoint(str(full)))
+    sizes = {"full": file_mb(full), "npz": file_mb(npz),
+             "weights": file_mb(dark), "dcp": file_mb(dcp_dir)}
+    for name, secs, mb in (
+            ("Trainer.save_checkpoint (params, BN state, 2 moments)",
+             ck_save, sizes["full"]),
+            ("Trainer.restore_checkpoint", ck_restore, sizes["full"]),
+            ("save_model(.npz)", save_s[".npz"], sizes["npz"]),
+            ("save_model(.weights)", save_s[".weights"], sizes["weights"]),
+            ("Yolov4(weight_path=.npz) (read, fold, place)", load_s,
+             sizes["npz"]),
+            ("save_dcp (params, BN state)", dcp_save, sizes["dcp"]),
+            ("load_dcp", dcp_load, sizes["dcp"])):
+        log(f"persistence f: {name}: {secs * 1e3:.1f} ms, {mb:.1f} MB, "
+            f"{mb / secs:.1f} MB/s ({card})")
+    for p in (full, after_a, npz, dark, root / "ck_0.npz", root / "ck_1.npz"):
+        p.unlink()
+    shutil.rmtree(dcp_dir)
+    # One epoch of fit without and with resume_dir (its checkpoint after
+    # the epoch), in turns.
+    epoch_s = {False: [], True: []}
+    for with_resume in (False, True, True, False):
+        e = trainer.history[-1]["epoch"] + 1
+        where = root / f"epoch{e}"
+        secs, _ = timed(torch, lambda: trainer.fit(
+            gen, epochs=e + 1, initial_epoch=e, verbose=False,
+            resume_dir=str(where) if with_resume else None))
+        epoch_s[with_resume].append(secs)
+        shutil.rmtree(where, ignore_errors=True)
+    log(f"persistence f: fit epoch of {len(gen)} steps at b8 bf16 (JPEG "
+        f"decode included), without resume_dir "
+        f"{', '.join(f'{s:.3f}' for s in epoch_s[False])} s, with it "
+        f"{', '.join(f'{s:.3f}' for s in epoch_s[True])} s ({card})")
+    log(f"persistence f: {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(resume, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1189,6 +1527,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    start = time.perf_counter()
+    phase_start = [start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"phase {name}: {now - phase_start[0]:.1f} s")
+        phase_start[0] = now
+
     # --- 1. card and build ---------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1207,9 +1553,12 @@ def main() -> int:
         for line in build.ptxas_report(so):
             log(f"  ptxas {so.name.split('-')[0]}: {line}")
 
+    phase_done("1 (card and build)")
+
     # --- 2. kernels vs plain versions --------------------------------------
     worst = kernel_phase(torch, nms_cuda)
     sorted_worst = sorted_kernel_phase(torch, nms_cuda)
+    phase_done("2 (NMS kernels vs plain)")
 
     # --- 3. the main path ------------------------------------------------
     SCRATCH.mkdir(parents=True, exist_ok=True)
@@ -1299,6 +1648,8 @@ def main() -> int:
         rate = predict_rate(torch, m16, imgs)
         log(f"predict_batch bf16 b{bsz} uint8: {rate:.1f} img/s ({card})")
 
+    phase_done("3 (inference, 'fast')")
+
     # --- 3b. nms_impl="pallas" -------------------------------------------
     pallas = {}
     for name, base in (("f32", DEFAULT_CONFIG),
@@ -1318,11 +1669,14 @@ def main() -> int:
     del pallas, cpu, m16, outs
     torch.cuda.empty_cache()
 
+    phase_done("3b (inference, 'pallas')")
+
     # --- 3c. the evaluation path -----------------------------------------
     folder = SCRATCH / "train"
     lines = write_train_set(folder)
     eval_launches = eval_phase(torch, nms_cuda, wpath, params, folder, card)
     torch.cuda.empty_cache()
+    phase_done("3c (evaluation)")
 
     # --- 4. the weight-gradient kernel ----------------------------------
     shapes = wgrad_shapes()
@@ -1330,17 +1684,28 @@ def main() -> int:
           f"expected 37 3x3 stride-1 convs in 9 shapes, got {dict(shapes)}")
     wgrad_err = wgrad_phase(torch, wgrad_cuda, shapes)
     wg = wgrad_times(torch, wgrad_cuda, shapes, card)
+    phase_done("4 (wgrad kernel)")
 
     # --- 5. the training path --------------------------------------------
     wlaunches, params0, state0 = train_phase(torch, wgrad_cuda, wpath,
                                              folder, lines, card, shapes)
     fidelity_phase(torch, params0, state0, folder, lines, card)
     rate_phase(torch, params0, state0, folder, lines, card)
+    del params0, state0
+    torch.cuda.empty_cache()
+    phase_done("5 (training)")
+
+    # --- 6. persistence --------------------------------------------------
+    persisted = persistence_phase(torch, nms_cuda, wgrad_cuda, wpath, folder,
+                                  lines, card, sum(shapes.values()))
+    phase_done("6 (persistence)")
+    log(f"all phases: {time.perf_counter() - start:.1f} s")
 
     kernels = [{"name": "suppress_rank", "route": "cuda",
                 "source": "yolov4tpu_torch/csrc/suppress_rank.cu",
                 "replaces": "yolov4tpu/ops/nms_pallas.py:191",
-                "launches": launches, "max_abs_err": worst,
+                "launches": launches + persisted["suppress_rank"],
+                "max_abs_err": worst,
                 "ms": k8["ms"], "device_ms": k8["device_ms"],
                 "plain_ms": k8["plain_ms"],
                 "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
@@ -1348,7 +1713,8 @@ def main() -> int:
                {"name": "suppress", "route": "cuda",
                 "source": "yolov4tpu_torch/csrc/suppress.cu",
                 "replaces": "yolov4tpu/ops/nms_pallas.py:37",
-                "launches": eval_launches, "max_abs_err": sorted_worst,
+                "launches": eval_launches + persisted["suppress"],
+                "max_abs_err": sorted_worst,
                 "ms": s8["ms"], "device_ms": s8["device_ms"],
                 "plain_ms": s8["plain_ms"],
                 "bound_ms": s8["bound_ms"], "bound_by": s8["bound_by"],
@@ -1356,7 +1722,8 @@ def main() -> int:
                {"name": "wgrad_3x3", "route": "cuda",
                 "source": "yolov4tpu_torch/csrc/wgrad_3x3.cu",
                 "replaces": "yolov4tpu/ops/wgrad_pallas.py:48",
-                "launches": wlaunches, "max_abs_err": wgrad_err,
+                "launches": wlaunches + persisted["wgrad"],
+                "max_abs_err": wgrad_err,
                 "ms": wg["ms"], "plain_ms": wg["plain_ms"],
                 "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"],
                 "library_ms": wg["library_ms"],

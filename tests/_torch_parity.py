@@ -101,6 +101,28 @@ def calibrated(num_classes: int, seed: int = 0, target: float = 30.0):
     return params, state, imgs
 
 
+def small_tree(seed: int = 0, convs=((3, 3, 8, True), (1, 8, 6, False),
+                                      (3, 8, 4, True))):
+    """(params, state) numpy pytrees in the JAX layout with the model's
+    structure at small widths: one conv per (kernel, in, out, has BN) of
+    ``convs``; a conv without BN has a bias and None state, as the head
+    convs do."""
+    rng = np.random.default_rng(seed)
+    layers, bn = [], []
+    for k, cin, cout, has_bn in convs:
+        p = {"w": rng.normal(size=(k, k, cin, cout)).astype(np.float32)}
+        if has_bn:
+            p["gamma"] = rng.uniform(0.5, 1.5, cout).astype(np.float32)
+            p["beta"] = rng.normal(size=cout).astype(np.float32)
+            bn.append({"mean": rng.normal(size=cout).astype(np.float32),
+                       "var": rng.uniform(0.5, 1.5, cout).astype(np.float32)})
+        else:
+            p["b"] = rng.normal(size=cout).astype(np.float32)
+            bn.append(None)
+        layers.append(p)
+    return {"convs": layers}, {"bn": bn}
+
+
 def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()

@@ -137,7 +137,18 @@ def test_unported_options_raise(models, tiny_classes, tmp_path):
                             torch.float32)
     with pytest.raises(NotImplementedError, match="int8"):
         tm.quantize(calib_imgs=images(0, 1))
-    h5 = tmp_path / "model.h5"
-    h5.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="h5"):
-        tapi.Yolov4(str(h5), tiny_classes, device="cpu")
+    unknown = tmp_path / "model.bin"
+    unknown.write_bytes(b"")
+    with pytest.raises(ValueError, match="unsupported weight file"):
+        tapi.Yolov4(str(unknown), tiny_classes, device="cpu")
+    # An .npz checkpoint of the full network loads as the weights.
+    from yolov4tpu_torch.checkpoint import save_npz
+    from yolov4tpu_torch.models.network import init, params_to_jax
+    params, state, _ = init(3, IMG, seed=2)
+    npz = tmp_path / "full.npz"
+    save_npz(str(npz), *params_to_jax(params, state))
+    loaded = tapi.Yolov4(str(npz), tiny_classes, device="cpu",
+                         config=YoloConfig(img_size=(IMG, IMG, 3)))
+    for a, b in zip(loaded.params["convs"], params["convs"]):
+        for k in b:
+            assert torch.equal(a[k], b[k])

@@ -1,11 +1,13 @@
 """``Yolov4`` — the reference-compatible user facade, on PyTorch and CUDA.
 
-Counterpart of ``yolov4tpu.api`` for inference, evaluation and training:
-construction from darknet ``.weights`` or a seeded random init,
-``predict``, ``predict_img``, ``predict_batch``, ``predict_paths``,
-``predict_raw``, ``predict_nonms`` (stretch or letterbox preprocessing),
-the mAP pipeline ``export_gt`` / ``export_prediction`` / ``eval_map``,
-``trainer``, ``fit`` and ``sync_from_trainer``.  The inference path is the
+Counterpart of ``yolov4tpu.api`` for inference, evaluation, training and
+persistence: construction from darknet ``.weights``, an ``.npz``
+checkpoint, a keras ``.h5`` file or a seeded random init; ``save_model``
+and ``load_model``; ``predict``, ``predict_img``, ``predict_batch``,
+``predict_paths``, ``predict_raw``, ``predict_nonms`` (stretch or
+letterbox preprocessing); the mAP pipeline ``export_gt`` /
+``export_prediction`` / ``eval_map``; ``trainer``, ``fit`` and
+``sync_from_trainer``.  The inference path is the
 BN-folded forward (models.network) -> fused decode (ops.detect) ->
 candidate NMS with the CUDA suppression kernel (ops.nms_cuda); with
 ``nms_impl="pallas"`` it is decode -> per-class top-K -> the sorted CUDA
@@ -24,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt
 from . import evalmap, weights
 from .config import DEFAULT_CONFIG, YoloConfig
 from .device import resolve_device, to_device_async
@@ -121,13 +124,18 @@ class Yolov4:
                     "pretrained weights require the full CSPDarknet53 depth "
                     "(csp_repeats=(1,2,8,8,4)); shallow variants train from "
                     "scratch")
-            if not self.weight_path.endswith(".weights"):
-                raise NotImplementedError(
-                    f"{self.weight_path}: the port reads darknet .weights "
-                    "only; checkpoints and keras .h5 files wait for "
-                    "ROADMAP.md queue A item 13")
-            self.params, self.state = weights.load_darknet_weights(
-                self.weight_path, self.num_classes)
+            if self.weight_path.endswith(".weights"):
+                self.params, self.state = weights.load_darknet_weights(
+                    self.weight_path, self.num_classes)
+            elif self.weight_path.endswith((".npz", ".h5ckpt", ".ckpt")):
+                self.params, self.state, _, _ = ckpt.load_npz(
+                    self.weight_path)
+            elif self.weight_path.endswith((".h5", ".hdf5")):
+                # Reference-era keras weight files.
+                self.params, self.state = weights.load_keras_h5(
+                    self.weight_path, self.num_classes)
+            else:
+                raise ValueError(f"unsupported weight file: {self.weight_path}")
             print(f"load from {self.weight_path}")
         else:
             self.params, self.state, _ = network.init(
@@ -157,8 +165,11 @@ class Yolov4:
         given Trainer, or the one this facade created via ``fit``)."""
         trainer = trainer if trainer is not None else self._trainer
         if trainer is not None:
+            # Copies, also on the CPU: later steps update the trainer's
+            # tensors in place.
             def cpu(tree):
-                return tree_map(lambda t: t.detach().cpu(), tree)
+                return tree_map(lambda t: t.detach().to("cpu", copy=True),
+                                tree)
             self.sync_params(cpu(trainer.params), cpu(trainer.state))
 
     def quantize(self, *args, **kwargs):
@@ -177,13 +188,29 @@ class Yolov4:
             "sharded inference across devices is not ported yet "
             "(ROADMAP.md queue A item 14)")
 
+    # ------------------------------------------------------------------
+    # Persistence
+    # ------------------------------------------------------------------
     def save_model(self, path: str):
-        raise NotImplementedError(
-            "saving a model is not ported yet (ROADMAP.md queue A item 13)")
+        """Save params + BN state (reference save_model, models.py:92-93): a
+        darknet ``.weights`` file, else an ``.npz`` checkpoint in the JAX
+        package's layout (``.npz`` is appended to a path without it)."""
+        if path.endswith(".weights"):
+            weights.save_darknet_weights(self.params, self.state, path)
+        else:
+            ckpt.save_npz(path if path.endswith(".npz") else path + ".npz",
+                          *network.params_to_jax(self.params, self.state))
 
     def load_model(self, path: str):
-        raise NotImplementedError(
-            "loading a model is not ported yet (ROADMAP.md queue A item 13)")
+        """Restore a ``.weights`` file or an ``.npz`` checkpoint and refold
+        onto the facade's device; keeps the configured NMS thresholds
+        (unlike reference models.py:86-90)."""
+        if path.endswith(".weights"):
+            self.params, self.state = weights.load_darknet_weights(
+                path, self.num_classes)
+        else:
+            self.params, self.state, _, _ = ckpt.load_npz(path)
+        self._refresh_inference()
 
     # ------------------------------------------------------------------
     # Inference

@@ -159,6 +159,25 @@ def params_from_jax(params, state):
     return {"convs": convs}, {"bn": bn}
 
 
+def params_to_jax(params, state):
+    """The inverse of ``params_from_jax``: the port's (params, state), on
+    any device, -> the JAX package's pytrees of numpy float32 arrays
+    (kernels OIHW -> HWIO; convs without BN keep their None state).  The
+    arrays are copies: later steps do not change them."""
+    def arrays(d):
+        out = {}
+        for k, v in d.items():
+            v = v.detach().to(torch.float32)
+            if k == "w":
+                v = v.permute(2, 3, 1, 0)
+            out[k] = v.clone(memory_format=torch.contiguous_format).cpu().numpy()
+        return out
+
+    convs = [arrays(p) for p in params["convs"]]
+    bn = [None if s is None else arrays(s) for s in state["bn"]]
+    return {"convs": convs}, {"bn": bn}
+
+
 # ---------------------------------------------------------------------------
 # BN folding and the folded (inference) forward
 # ---------------------------------------------------------------------------

@@ -10,9 +10,12 @@ with OIHW kernels.
 
 Also: the cosine-annealing LR schedule of the reference's
 CosineAnnealingScheduler (reference custom_callbacks.py:5-15), gradient
-accumulation, pad-and-mask and chunked steps for ragged batches, and the
-epoch loop ``Trainer.fit``.  Data-parallel training (ROADMAP.md queue A
-item 12) and checkpoints (item 13) raise ``NotImplementedError``.
+accumulation, pad-and-mask and chunked steps for ragged batches, the epoch
+loop ``Trainer.fit``, and checkpoints in the JAX Trainer's file layout
+(``Trainer.save_checkpoint``/``restore_checkpoint``, ``fit(resume_dir=)``):
+the optimizer's state is written as optax's leaves (``optimizer_leaves``),
+so a checkpoint of either package resumes in the other.  Data-parallel
+training (ROADMAP.md queue A item 12) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import math
 import time
 from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
 from .config import YoloConfig
@@ -30,8 +34,6 @@ from .models import network
 
 _MESH = ("is not ported yet: data-parallel training waits for ROADMAP.md "
          "queue A item 12")
-_CHECKPOINT = ("is not ported yet: checkpoints wait for ROADMAP.md queue A "
-               "item 13")
 
 
 # ---------------------------------------------------------------------------
@@ -96,15 +98,24 @@ class Adam:
     With ``schedule`` the LR of each step is ``schedule(count)`` at the
     pre-increment step count, as optax reads it (the first step uses
     schedule(0)).  Without one, the LR lives in the param group, where
-    ``Trainer.set_learning_rate`` changes it between steps.
+    ``Trainer.set_learning_rate`` changes it between steps; it is kept
+    rounded to float32, as optax.inject_hyperparams keeps it.
     """
 
     def __init__(self, tensors, learning_rate: float, schedule=None):
         self.tensors = list(tensors)
         self.schedule = schedule
         self.count = 0
-        lr = schedule(0) if schedule is not None else learning_rate
-        self.opt = torch.optim.Adam(self.tensors, lr=float(lr), eps=1e-8)
+        lr = schedule(0) if schedule is not None else _f32(learning_rate)
+        self._lr0 = float(lr)
+        self.opt = torch.optim.Adam(self.tensors, lr=self._lr0, eps=1e-8)
+
+    def reset(self):
+        """Back to the state of construction: no moments, count 0, the
+        initial LR."""
+        self.opt.state.clear()
+        self.opt.param_groups[0]["lr"] = self._lr0
+        self.count = 0
 
     def step(self, grads):
         for t, g in zip(self.tensors, grads):
@@ -133,6 +144,12 @@ class FusedAdam:
         ref = self.tensors[0]
         self.mu = torch.zeros(n, dtype=torch.float32, device=ref.device)
         self.nu = torch.zeros_like(self.mu)
+        self.count = 0
+
+    def reset(self):
+        """Back to the state of construction: zero moments, count 0."""
+        self.mu.zero_()
+        self.nu.zero_()
         self.count = 0
 
     @torch.no_grad()
@@ -166,6 +183,196 @@ def make_optimizer(config: YoloConfig, tensors, schedule=None):
         return fused_adam(tensors, schedule if schedule is not None
                           else config.learning_rate)
     return Adam(tensors, config.learning_rate, schedule)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+# ---------------------------------------------------------------------------
+# Optimizer state as the JAX Trainer's checkpoints hold it
+# ---------------------------------------------------------------------------
+
+_HYPER = ("b1", "b2", "eps", "eps_root", "learning_rate")
+_I32, _F32 = np.dtype(np.int32), np.dtype(np.float32)
+
+
+def _jax_order(tree) -> list:
+    """Indices into ``leaves(tree)`` in ``jax.tree.leaves`` order, which
+    sorts dict keys (``beta, gamma, w``; ``b, w``) where ``leaves`` keeps
+    insertion order (``w, gamma, beta``; ``w, b``)."""
+    counter = iter(range(len(leaves(tree))))
+    numbered = tree_map(lambda _: next(counter), tree)
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif node is not None:
+            out.append(node)
+
+    walk(numbered)
+    return out
+
+
+def _to_jax(t):
+    """A parameter-shaped tensor in the JAX layout (OIHW -> HWIO)."""
+    return t.permute(2, 3, 1, 0) if t.dim() == 4 else t
+
+
+def _from_jax(t):
+    """The inverse of ``_to_jax`` (HWIO -> OIHW)."""
+    return t.permute(3, 2, 0, 1) if t.dim() == 4 else t
+
+
+def _host(t) -> np.ndarray:
+    """A copy of ``t`` as a contiguous numpy array."""
+    return t.detach().clone(memory_format=torch.contiguous_format).cpu().numpy()
+
+
+def _optimizer_layout(optimizer, params) -> list:
+    """The leaves of the JAX Trainer's ``opt_state`` for ``optimizer`` over
+    ``params``, as [(slot, shape, numpy dtype)].  A slot is "count", a
+    hyperparameter's name, ("mu", i) / ("nu", i) for the moment of port
+    leaf i, or "mu" / "nu" for the fused flat vectors:
+
+      - ``Adam`` (``optax.inject_hyperparams(optax.adam)``): count, b1, b2,
+        eps, eps_root, learning_rate, adam count, mu..., nu...;
+      - ``Adam`` with a schedule (``optax.adam(schedule)``): adam count,
+        mu..., nu..., schedule count;
+      - ``FusedAdam`` (``fused_adam``): count, mu, nu, flat in
+        ``ravel_pytree`` order.
+
+    mu... and nu... run in ``jax.tree.leaves`` order, kernels HWIO."""
+    tensors = leaves(params)
+    if isinstance(optimizer, FusedAdam):
+        n = sum(t.numel() for t in tensors)
+        return [("count", (), _I32), ("mu", (n,), _F32), ("nu", (n,), _F32)]
+    if not isinstance(optimizer, Adam):
+        raise TypeError(
+            f"checkpoints hold the state of Adam and FusedAdam, not of "
+            f"{type(optimizer).__name__}")
+    order = _jax_order(params)
+    adam = [("count", (), _I32)]
+    for kind in ("mu", "nu"):
+        adam += [((kind, i), tuple(_to_jax(tensors[i]).shape), _F32)
+                 for i in order]
+    if optimizer.schedule is not None:
+        return adam + [("count", (), _I32)]
+    return ([("count", (), _I32)] + [(k, (), _F32) for k in _HYPER]
+            + adam)
+
+
+def _flat_jax(flat, tensors, order):
+    """A flat vector over ``tensors`` in the port's order and layout -> the
+    same values in ``ravel_pytree`` order (``order``) and the JAX layout."""
+    parts, offset = [], 0
+    for t in tensors:
+        parts.append(flat[offset:offset + t.numel()].view(t.shape))
+        offset += t.numel()
+    return torch.cat([_to_jax(parts[i]).reshape(-1) for i in order])
+
+
+def _flat_port(flat, tensors, order):
+    """The inverse of ``_flat_jax``."""
+    parts, offset = {}, 0
+    for i in order:
+        shape = _to_jax(tensors[i]).shape
+        n = tensors[i].numel()
+        parts[i] = _from_jax(flat[offset:offset + n].view(shape))
+        offset += n
+    return torch.cat([parts[i].reshape(-1) for i in range(len(tensors))])
+
+
+def optimizer_leaves(optimizer, params) -> list:
+    """The state of ``optimizer`` (``Adam`` or ``FusedAdam`` over
+    ``leaves(params)``) as the exact list ``jax.tree.leaves(opt_state)``
+    that the JAX Trainer saves for its optimizer of the same kind: numpy
+    arrays, counts int32, moments in ``jax.tree.leaves`` order with HWIO
+    kernels.  A moment that does not exist yet (no step taken) is zeros."""
+    tensors = leaves(params)
+    layout = _optimizer_layout(optimizer, params)
+    if isinstance(optimizer, FusedAdam):
+        order = _jax_order(params)
+        flat = {"mu": _flat_jax(optimizer.mu, tensors, order),
+                "nu": _flat_jax(optimizer.nu, tensors, order)}
+    else:
+        group = optimizer.opt.param_groups[0]
+        hyper = {"b1": group["betas"][0], "b2": group["betas"][1],
+                 "eps": group["eps"], "eps_root": 0.0,
+                 "learning_rate": group["lr"]}
+        state = optimizer.opt.state
+    out = []
+    for slot, _, dtype in layout:
+        if slot == "count":
+            v = np.asarray(optimizer.count, dtype)
+        elif slot in _HYPER:
+            v = np.asarray(hyper[slot], dtype)
+        elif isinstance(slot, str):                       # fused mu / nu
+            v = _host(flat[slot])
+        else:
+            kind, i = slot
+            t = tensors[i]
+            moment = state.get(t, {}).get(
+                "exp_avg" if kind == "mu" else "exp_avg_sq")
+            v = (_host(_to_jax(moment)) if moment is not None
+                 else np.zeros(_to_jax(t).shape, dtype))
+        out.append(v)
+    return out
+
+
+def _layout_matches(layout, saved) -> bool:
+    """The migration gate: the leaf count, then each leaf's shape and
+    dtype."""
+    return len(layout) == len(saved) and all(
+        tuple(np.shape(s)) == shape and np.asarray(s).dtype == dtype
+        for (_, shape, dtype), s in zip(layout, saved))
+
+
+@torch.no_grad()
+def load_optimizer_leaves(optimizer, params, saved) -> None:
+    """The inverse of ``optimizer_leaves``: write the saved leaves (numpy
+    arrays in optax's layout, already checked against it) into
+    ``optimizer``'s state on its device, in place where the state exists.
+    The learning rate of an ``Adam`` without a schedule is the saved one;
+    b1, b2, eps and eps_root are the optimizer's constants, written as
+    optax holds them and not read back."""
+    tensors = leaves(params)
+    device = tensors[0].device
+    layout = _optimizer_layout(optimizer, params)
+    count = next(int(v) for (slot, _, _), v in zip(layout, saved)
+                 if slot == "count")
+    if isinstance(optimizer, FusedAdam):
+        order = _jax_order(params)
+        for (slot, _, _), v in zip(layout, saved):
+            if slot in ("mu", "nu"):
+                flat = to_device_async(v, device)
+                getattr(optimizer, slot).copy_(
+                    _flat_port(flat, tensors, order))
+        optimizer.count = count
+        return
+    state = optimizer.opt.state
+    for (slot, _, _), v in zip(layout, saved):
+        if slot == "learning_rate":
+            optimizer.opt.param_groups[0]["lr"] = float(v)
+        elif isinstance(slot, tuple):
+            kind, i = slot
+            t = tensors[i]
+            if not state.get(t):
+                state[t] = {
+                    "step": torch.tensor(0.0),
+                    "exp_avg": torch.zeros_like(
+                        t, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(
+                        t, memory_format=torch.preserve_format)}
+            state[t]["exp_avg" if kind == "mu" else "exp_avg_sq"].copy_(
+                _from_jax(to_device_async(v, device)))
+            state[t]["step"].fill_(float(count))
+    optimizer.count = count
 
 
 # ---------------------------------------------------------------------------
@@ -519,8 +726,9 @@ class Trainer:
         return float(self._lr_group()["lr"])
 
     def set_learning_rate(self, lr: float) -> None:
-        """Set the LR applied from the next step on."""
-        self._lr_group()["lr"] = float(lr)
+        """Set the LR applied from the next step on (rounded to float32, as
+        the JAX Trainer holds it)."""
+        self._lr_group()["lr"] = _f32(lr)
 
     def eval_step(self, batch):
         """Validation loss on one batch; a non-aligned batch is padded with
@@ -536,11 +744,59 @@ class Trainer:
                                      self._place(batch))
         return self._eval(self.params, self.state, self._place(batch))
 
+    # -- checkpoint / resume ------------------------------------------------
     def save_checkpoint(self, path: str, epoch: int = -1):
-        raise NotImplementedError(f"Trainer.save_checkpoint {_CHECKPOINT}")
+        """Full training checkpoint: params + BN state + optimizer state, in
+        the JAX Trainer's file layout (``optimizer_leaves``)."""
+        from . import checkpoint as ckpt
+        params, state = network.params_to_jax(self.params, self.state)
+        ckpt.save_npz(path, params,
+                      {"model": state,
+                       "opt_leaves": optimizer_leaves(self.optimizer,
+                                                      self.params)},
+                      step=self.global_step, extra={"epoch": epoch})
 
+    @torch.no_grad()
     def restore_checkpoint(self, path: str) -> int:
-        raise NotImplementedError(f"Trainer.restore_checkpoint {_CHECKPOINT}")
+        """Restore a full training checkpoint of either package; returns the
+        next epoch.  Parameters are written into the tensors the optimizer
+        holds.  Optimizer state whose leaves do not match this optimizer's
+        layout (count, then each leaf's shape and dtype) is reinitialized,
+        as in the JAX Trainer."""
+        from . import checkpoint as ckpt
+        params, wrapped, step, extra = ckpt._read_npz(path)
+        if len(leaves(params)) != len(leaves(self.params)):
+            raise ValueError(f"{path}: its parameters do not fit this "
+                             "Trainer's model")
+
+        def write(dst, src):
+            src = _from_jax(to_device_async(src, self.device))
+            if src.shape != dst.shape:
+                raise ValueError(f"{path}: a parameter of shape "
+                                 f"{tuple(src.shape)} where this Trainer's "
+                                 f"model has {tuple(dst.shape)}")
+            dst.copy_(src)
+
+        tree_map(write, self.params, params)
+        self.state = tree_map(lambda _, a: to_device_async(a, self.device),
+                              self.state, wrapped["model"])
+        saved_leaves = wrapped["opt_leaves"]
+        layout = _optimizer_layout(self.optimizer, self.params)
+        if _layout_matches(layout, saved_leaves):
+            load_optimizer_leaves(self.optimizer, self.params, saved_leaves)
+        else:
+            # A checkpoint from a different optimizer format: params, step
+            # and epoch restore, the moments restart.
+            print(f"restore_checkpoint: optimizer state in {path} "
+                  f"({len(saved_leaves)} leaves) does not match the current "
+                  f"optimizer's layout ({len(layout)} leaves, "
+                  "shape/dtype-checked); reinitializing optimizer state "
+                  "(params/step/epoch are restored)")
+            self.optimizer.reset()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.global_step = step
+        return int(extra.get("epoch", -1)) + 1
 
     def fit(self, train_gen, epochs: int, val_gen=None, initial_epoch: int = 0,
             callbacks: Optional[Iterable[Callable]] = None,
@@ -548,10 +804,25 @@ class Trainer:
             resume_dir: Optional[str] = None):
         """Epoch loop with prefetching (reference fit, models.py:100-107 —
         minus its crash when val_gen is None).  Returns the history: one
-        {'epoch', 'loss', 'time'[, 'val_loss']} entry per epoch."""
-        if resume_dir is not None:
-            raise NotImplementedError(f"fit(resume_dir=...) {_CHECKPOINT}")
+        {'epoch', 'loss', 'time'[, 'val_loss']} entry per epoch.
+
+        With ``resume_dir`` set, a full checkpoint (params, BN state,
+        optimizer) is written to ``resume_dir/latest.npz`` after every
+        epoch's callbacks, and a later ``fit`` with the same directory
+        resumes from it at the next epoch.
+        """
+        import os
+
         from .data.pipeline import prefetch
+
+        latest = (os.path.join(resume_dir, "latest.npz")
+                  if resume_dir else None)
+        if latest and os.path.exists(latest):
+            initial_epoch = max(initial_epoch, self.restore_checkpoint(latest))
+            if verbose:
+                print(f"resumed from {latest} at epoch {initial_epoch}")
+        elif resume_dir:
+            os.makedirs(resume_dir, exist_ok=True)
 
         for epoch in range(initial_epoch, epochs):
             for cb in (callbacks or []):
@@ -589,4 +860,6 @@ class Trainer:
                        for k, v in entry.items()})
             for cb in (callbacks or []):
                 cb(self, entry)
+            if latest:
+                self.save_checkpoint(latest, epoch=epoch)
         return self.history

@@ -10,9 +10,10 @@ Byte layout (reference utils.py:12-53):
 
 The layout table comes from the port's own topology trace
 (``models.network.conv_specs``).  Darknet's kernel order is PyTorch's OIHW,
-so kernels load without a transpose.  Also the synthetic-weight helpers the
-tests and ``chip_smoke.py`` use to make a random detector emit a realistic
-number of boxes.
+so kernels load without a transpose.  Also the reader of reference-era
+keras ``.h5`` weight files (``load_keras_h5``), and the synthetic-weight
+helpers the tests and ``chip_smoke.py`` use to make a random detector emit
+a realistic number of boxes.
 """
 
 from __future__ import annotations
@@ -94,6 +95,60 @@ def save_darknet_weights(params: dict, state: dict, path,
             else:
                 _numpy(p["b"]).tofile(f)
             _numpy(p["w"]).tofile(f)  # already (out, in, h, w)
+
+
+def load_keras_h5(path: str, num_classes: int) -> Tuple[dict, dict]:
+    """Reader for reference-era keras ``.h5`` weight files -> (params,
+    state) dictionaries of CPU float32 tensors (OIHW kernels).
+
+    Reads both legacy keras HDF5 layouts (``save_weights`` files and
+    full-model saves with a ``model_weights`` group) by the auto-name
+    scheme of the reference's loader (``conv2d``/``conv2d_{i}`` with a
+    separate ``batch_normalization_{j}`` counter, reference
+    utils.py:19-24), as ``yolov4tpu.weights.load_keras_h5`` does.  h5py is
+    imported here only: nothing else of the port needs it.
+    """
+    import h5py
+
+    def names(group):
+        return [n.decode() if isinstance(n, bytes) else n
+                for n in group.attrs["weight_names"]]
+
+    def arrays(group):
+        return {n.rsplit("/", 1)[-1].split(":")[0]: np.asarray(group[n])
+                for n in names(group)}
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    with h5py.File(path, "r") as f:
+        g = f["model_weights"] if "model_weights" in f else f
+        convs, bn_state = [], []
+        bn_idx = 0
+        for i, spec in enumerate(conv_specs(num_classes)):
+            cname = f"conv2d_{i}" if i > 0 else "conv2d"
+            carr = arrays(g[cname])
+            kernel = carr["kernel"]
+            if kernel.shape != (spec.kernel_size, spec.kernel_size,
+                                spec.in_ch, spec.filters):
+                raise ValueError(
+                    f"{cname}: kernel shape {kernel.shape} does not match "
+                    f"spec {spec} (wrong num_classes?)")
+            p = {"w": tensor(kernel.transpose(3, 2, 0, 1))}  # HWIO -> OIHW
+            if spec.batch_norm:
+                bname = (f"batch_normalization_{bn_idx}" if bn_idx > 0
+                         else "batch_normalization")
+                barr = arrays(g[bname])
+                p["gamma"] = tensor(barr["gamma"])
+                p["beta"] = tensor(barr["beta"])
+                bn_state.append({"mean": tensor(barr["moving_mean"]),
+                                 "var": tensor(barr["moving_variance"])})
+                bn_idx += 1
+            else:
+                p["b"] = tensor(carr["bias"])
+                bn_state.append(None)
+            convs.append(p)
+    return {"convs": convs}, {"bn": bn_state}
 
 
 def random_darknet_bytes(num_classes: int, seed: int = 0) -> bytes:
