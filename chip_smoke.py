@@ -70,7 +70,27 @@ exits non-zero without printing a result:
      against ``params_to_jax`` and a ``torch.distributed.checkpoint`` round
      trip; the save, restore and load times and sizes, and an epoch's time
      with and without ``resume_dir``.  The three kernels' launches in it
-     are counted into the summary.
+     are counted into the summary;
+  7. int8 post-training quantization and AOT serving through the user's
+     entry points, at full depth, 416x416, COCO-80, with well-conditioned
+     weights whose head biases are calibrated so the model detects: the
+     int8 GEMM (im2col + ``torch._int_mm``) equal to a float64 conv of the
+     same int8 operands for one conv per kind and input side and for a
+     product of 4 rows; ``Yolov4.quantize`` on 16 scene images for both
+     dataflows and both calibration methods, the card's float32 scales
+     against the CPU's within 1e-4; int8 ``predict_batch`` ("fast") at b8
+     f32, b8 bf16 and b64 bf16, one rank-kernel launch a call; the card's
+     float32 int8 raw grids against the CPU's (rel-RMS 1e-2) with the share
+     of int8 elements that differ; int8 against float detections at bf16
+     (the JAX package's detection-level contract); forward and
+     ``predict_batch`` times in turns at b8 and b64, peak memory and a
+     profiler split of one int8 b64 forward; then ``serving.export_detector``
+     -> ``load_detector`` of the float bf16 "fast", int8 "fast" (uint8
+     input) and float "pallas" programs at b8, each equal to the live
+     ``predict_batch`` and launching its kernel once a call, and a
+     package-free ("cuda", "cpu") "xla" artifact run on both devices, with
+     the export, save and load times and sizes.  Its launches are counted
+     into the summary.
 
 Each phase prints its seconds.  The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times (``device_ms`` from CUDA-graph
@@ -1507,6 +1527,408 @@ def persistence_phase(torch, nms_cuda, wgrad_cuda, wpath, folder, lines,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: int8 post-training quantization and AOT serving
+# ---------------------------------------------------------------------------
+
+def conv_inputs(num_classes: int, side: int = 416):
+    """(conv index, input side, kernel, downsampling, Ci, Co) of every conv
+    of the forward, in serial order."""
+    from yolov4tpu_torch.models import network, topology
+
+    class Trace(network._InitOps):
+        def __init__(self):
+            super().__init__(None)
+            self.shapes = []
+
+        def conv(self, x, filters, kernel_size, downsampling=False,
+                 activation="leaky", batch_norm=True):
+            self.shapes.append((len(self.specs), x.h, kernel_size,
+                                downsampling, x.c, filters))
+            return super().conv(x, filters, kernel_size, downsampling,
+                                activation, batch_norm)
+
+    trace = Trace()
+    topology.yolov4(trace, network._ShapeVal(side, side, 3), num_classes,
+                    topology.DEFAULT_CSP_REPEATS)
+    return trace.shapes
+
+
+def int8_gemm_phase(torch, model, card):
+    """7a: the int8 conv (im2col + ``torch._int_mm``) of one quantized conv
+    per kind (1x1, 3x3 stride 1, 3x3 stride 2) and input side, at b8, and
+    one 1x1 product of 4 rows (padded to the 17 ``_int_mm`` takes), against
+    a float64 conv of the same int8 operands: exact, every sum is an
+    integer below 2^53.  Returns the cases checked."""
+    import torch.nn.functional as F
+    from yolov4tpu_torch.models import quantize
+    rng = np.random.default_rng(7)
+    first = {}
+    for idx, side, k, down, ci, co in conv_inputs(model.num_classes,
+                                                  model.img_size[0]):
+        if "wq" in model._folded["convs"][idx]:
+            first.setdefault((k, down, side), (idx, ci, co))
+    cases = [(key, val, 8) for key, val in sorted(first.items())]
+    cases.append(((1, False, 2), next(v for (k, _, _), v in
+                                      sorted(first.items()) if k == 1), 1))
+    for (k, down, side), (idx, ci, co), b in cases:
+        x = torch.from_numpy(rng.integers(-127, 128, (b, side, side, ci),
+                                          dtype=np.int8)).cuda().permute(
+                                              0, 3, 1, 2)   # channels_last
+        wq = model._folded["convs"][idx]["wq"]          # (Co, k*k*Ci)
+        with torch.inference_mode():
+            y, _ = quantize.int8_conv(x, wq, k, down)
+            w = wq.view(co, k, k, ci).permute(0, 3, 1, 2).double()
+            xd = x.double()
+            ref = (F.conv2d(F.pad(xd, (1, 0, 1, 0)), w, stride=2) if down
+                   else F.conv2d(xd, w, padding=k // 2))
+            ref = ref.permute(0, 2, 3, 1).reshape(-1, co)
+        check(y.dtype == torch.int32 and torch.equal(y.double(), ref),
+              f"int8 GEMM != float64 conv: conv {idx} {k}x{k}"
+              f"{' s2' if down else ''} at {side}^2, b{b}")
+    log(f"int8 a: im2col + torch._int_mm int32 accumulators == float64 conv "
+        f"of the same int8 operands, exactly, in {len(cases)} cases: "
+        + ", ".join(f"{k}x{k}{' s2' if d else ''}@{s} b{b}"
+                    for (k, d, s), _, b in cases) + f" ({card})")
+    return len(cases)
+
+
+def record_int8(torch, qparams, scales, images, dtype):
+    """The int8 forward (int8 dataflow, s2d stem on) of ``images``: (raw
+    grids, the int8 output of every quantized conv as NHWC tensors)."""
+    from yolov4tpu_torch.models import quantize, topology
+
+    outs = []
+
+    class Recording(quantize._QuantizedFlowOps):
+        def conv(self, *args, **kwargs):
+            y = super().conv(*args, **kwargs)
+            if isinstance(y, quantize._QVal):
+                outs.append(y.q.permute(0, 2, 3, 1))
+            return y
+
+    with torch.inference_mode():
+        ops = Recording(qparams, scales, dtype, s2d_stem=True)
+        raws = topology.yolov4(ops, images.permute(0, 3, 1, 2), 80,
+                               topology.DEFAULT_CSP_REPEATS)
+    return [r.permute(0, 2, 3, 1).float() for r in raws], outs
+
+
+def rel_rms(got, want) -> float:
+    """RMS of the difference over the RMS of ``want`` (tensors, float64)."""
+    got, want = got.double(), want.double()
+    return float((got - want).square().mean().sqrt()
+                 / want.square().mean().sqrt())
+
+
+def box_iou(a, b) -> float:
+    lo, hi = np.maximum(a[:2], b[:2]), np.minimum(a[2:], b[2:])
+    inter = float(np.prod(np.clip(hi - lo, 0, None)))
+    union = float(np.prod(a[2:] - a[:2]) + np.prod(b[2:] - b[:2])) - inter
+    return inter / max(union, 1e-9)
+
+
+def detections_agree(ref, other, label):
+    """The JAX package's int8 detection contract (tests/test_quantize.py:
+    128-173): per image, counts within max(3, 25%); at least 80% of the
+    confident (score >= 0.10) reference boxes have a same-class box at IoU
+    >= 0.5.  Returns (matched, checked)."""
+    checked = matched = 0
+    for i in range(int(ref[3].shape[0])):
+        rb, rs, rc, rn = numpy_outputs(ref, i)
+        ob, _, oc, on = numpy_outputs(other, i)
+        check(abs(rn - on) <= max(3, int(0.25 * max(rn, on))),
+              f"{label}: image {i} has {on} detections against {rn}")
+        for j in range(rn):
+            if rs[j] < 0.10:
+                continue
+            checked += 1
+            matched += any(rc[j] == oc[k] and box_iou(rb[j], ob[k]) >= 0.5
+                           for k in range(on))
+    check(checked > 0 and matched >= 0.8 * checked,
+          f"{label}: {matched} of {checked} confident boxes matched")
+    return matched, checked
+
+
+def well_conditioned_params(torch, num_classes: int = 80, seed: int = 3):
+    """Full-depth (params, state) whose activations stay O(1) through the
+    110 convs: unit-gain kernels, N(0, 1 / fan_in), BN at its init (unit
+    scale and variance, zero mean) with shifts drawn N(0, 1), head biases
+    zero; CPU tensors.  Not the JAX package's int8 test weights: its
+    He-scaled kernels (N(0, 2 / fan_in), tests/test_quantize.py
+    he_scaled_model) grow the activations by orders of magnitude over the
+    full depth, and BN statistics taken from a batch make the forward
+    chaotic (bfloat16 rounding alone decorrelates the grids), so int8
+    could not be told from noise; with these, bfloat16 and int8 move the
+    grids by under 1% (phase 7 prints int8's)."""
+    from yolov4tpu_torch.models import network
+    rng = np.random.default_rng(seed)
+    convs, bn = [], []
+    for spec in network.conv_specs(num_classes):
+        k, ci, co = spec.kernel_size, spec.in_ch, spec.filters
+        p = {"w": torch.from_numpy(rng.normal(
+            0.0, np.sqrt(1.0 / (k * k * ci)), (co, ci, k, k)).astype(
+                np.float32))}
+        if spec.batch_norm:
+            p.update(gamma=torch.ones(co), beta=torch.from_numpy(
+                rng.normal(0.0, 1.0, co).astype(np.float32)))
+            bn.append({"mean": torch.zeros(co), "var": torch.ones(co)})
+        else:
+            p["b"] = torch.zeros(co)
+            bn.append(None)
+        convs.append(p)
+    return {"convs": convs}, {"bn": bn}
+
+
+def int8_phase(torch, nms_cuda, wpath, card):
+    """Phase 7a-d: int8 post-training quantization through the user's
+    entry points at full depth, 416^2, COCO-80, with well-conditioned
+    weights (``well_conditioned_params``) whose head biases are calibrated
+    as in phase 3 so the model detects: (a) the int8 GEMM against an exact
+    reference; (b) ``Yolov4.quantize`` on 16 scene images for both dataflows and both
+    calibration methods, and the card's float32 scales against the CPU's;
+    (c) int8 ``predict_batch`` ("fast") at b8 f32, b8 bf16 and b64 bf16,
+    the card's f32 raw grids against the CPU's, and int8 against float
+    detections; (d) forward and ``predict_batch`` times in turns, peak
+    memory and a profiler split of one int8 b64 forward.  Returns the
+    facades serving uses and the rank kernel's launches in (c)."""
+    from yolov4tpu_torch import weights
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    from yolov4tpu_torch.models import network, quantize
+
+    cfg16 = dataclasses.replace(DEFAULT_CONFIG, compute_dtype="bfloat16")
+    params, state = well_conditioned_params(torch)
+
+    def facade(config=DEFAULT_CONFIG, device="cuda"):
+        # The file only seeds the constructor; the weights are replaced.
+        m = Yolov4(weight_path=str(wpath), class_name_path=str(CLASSES),
+                   config=config, device=device)
+        m.sync_params(params, state)
+        return m
+
+    q32 = facade()
+    with torch.inference_mode():
+        raws = q32._raw(torch.from_numpy(scene(1, 8)).cuda().float() / 255.0)
+    boxes = sum(r.shape[1] * r.shape[2] * 3 for r in raws)
+    params, delta = weights.calibrate_detection_density(
+        params, raws, 80, target_per_image=min(120.0, boxes / 4), spread=1.0)
+    q32.sync_params(params, state)
+    log(f"int8: unit-gain kernels, BN shifts N(0, 1), head biases "
+        f"calibrated (delta {delta:.4f}); raw grid std "
+        + ", ".join(f"{float(r.std()):.3g}" for r in raws))
+    del raws
+    calib = scene(11, 16).astype(np.float32) / 255.0
+    f16, q8, qb = facade(cfg16), facade(cfg16), facade(cfg16)
+    q32.quantize(calib_imgs=calib[:2])
+    int8_gemm_phase(torch, q32, card)
+
+    # --- b. quantize: both dataflows and both calibration methods ---------
+    scales = {}
+    for model, dataflow in ((q8, "int8"), (qb, "bf16")):
+        for method in ("percentile", "max"):
+            secs, _ = timed(torch, lambda: model.quantize(
+                calib_imgs=calib, dataflow=dataflow, calib_method=method))
+            scales[dataflow, method] = model._act_scales
+            n_q = sum("wq" in p for p in model._folded["convs"])
+            check(n_q == 105, f"{n_q} int8 convs, expected 105")
+            log(f"int8 b: quantize(16 images, dataflow={dataflow!r}, "
+                f"calib_method={method!r}) bf16: {secs:.2f} s, {n_q} of 110 "
+                f"convs int8, conv-input scales "
+                f"{float(model._act_scales['conv_in'].min()):.3g}-"
+                f"{float(model._act_scales['conv_in'].max()):.3g} ({card})")
+    for dataflow in ("int8", "bf16"):
+        pct, mx = scales[dataflow, "percentile"], scales[dataflow, "max"]
+        check(all(np.all((pct[k] > 0) & (pct[k] <= mx[k] * (1 + 1e-6)))
+                  for k in mx), "percentile scales above the max-abs ones")
+    cpu = facade(device="cpu")
+    cpu.quantize(calib_imgs=calib[:2])
+    worst = max(float(np.max(np.abs(q32._act_scales[k] / cpu._act_scales[k]
+                                    - 1))) for k in cpu._act_scales)
+    check(worst <= 1e-4, f"card f32 scales vs CPU: rtol {worst:.3g} > 1e-4")
+    log(f"int8 b: card f32 (TF32 off) max-abs scales on 2 images vs the "
+        f"CPU's: largest relative difference {worst:.3g} (limit 1e-4)")
+
+    # --- c. int8 predict_batch, "fast" -------------------------------------
+    u8 = scene(12, 8)
+    f32 = u8.astype(np.float32) / 255.0
+    u64 = scene(13, 64)
+    nms_cuda.LAUNCHES = 0
+    outs = {"int8 f32 b8": q32.predict_batch(f32),
+            "int8 bf16 b8": q8.predict_batch(u8),
+            "int8 bf16 b64": q8.predict_batch(u64),
+            "int8-bf16 dataflow b8": qb.predict_batch(u8)}
+    torch.cuda.synchronize()
+    launches = nms_cuda.LAUNCHES
+    check(launches == len(outs), f"suppress_rank launched {launches} times "
+          f"in {len(outs)} int8 predict_batch calls")
+    for name, out in outs.items():
+        check(all(bool(torch.isfinite(o.float()).all()) for o in out)
+              and int(out[3].min()) > 0, f"{name}: no detections or "
+              f"non-finite outputs ({out[3].tolist()})")
+    log(f"int8 c: {len(outs)} int8 predict_batch calls, suppress_rank "
+        f"launched {launches} times; valid " + "; ".join(
+            f"{k} {v[3].tolist()[:8]}" for k, v in outs.items()))
+    # The card's f32 int8 forward against the CPU's, same int8 params and
+    # scales, one image.
+    folded = network.fold_bn(params, state)
+    qp = quantize.quantize_folded(folded, q32._act_scales, 80)
+    x1 = torch.from_numpy(f32[:1])
+    raw_c, q_c = record_int8(torch, network.prepare_folded(qp, "cuda"),
+                             q32._act_scales, x1.cuda(), torch.float32)
+    raw_h, q_h = record_int8(torch, network.prepare_folded(qp, "cpu"),
+                             q32._act_scales, x1, torch.float32)
+    rel = max(rel_rms(a.cpu(), b) for a, b in zip(raw_c, raw_h))
+    differ = sum(int((a.cpu() != b).sum()) for a, b in zip(q_c, q_h))
+    total = sum(b.numel() for b in q_h)
+    check(rel <= 1e-2, f"card vs CPU int8 f32 raw grids: rel-RMS {rel:.3g}")
+    log(f"int8 c: card vs CPU int8 f32 forward, b1, same int8 params and "
+        f"scales: raw grids rel-RMS {rel:.3g} (limit 1e-2); {differ} of "
+        f"{total} int8 elements differ ({differ / total:.3g}) over "
+        f"{len(q_h)} quantized convs")
+    floats = f16.predict_batch(u8)
+    x8 = torch.from_numpy(u8).cuda().float() / 255.0
+    raw_f = f16._raw(x8)
+    for name, model in (("int8-int8", q8), ("int8-bf16", qb)):
+        log(f"int8 c: {name} vs float bf16 raw grids, b8: rel-RMS "
+            + ", ".join(f"{rel_rms(a, b):.3g}"
+                        for a, b in zip(model._raw(x8), raw_f)))
+    del x8, raw_f
+    for name in ("int8 bf16 b8", "int8-bf16 dataflow b8"):
+        matched, checked = detections_agree(floats, outs[name], name)
+        log(f"int8 c: {name} vs float bf16 b8: counts within max(3, 25%), "
+            f"{matched} of {checked} confident float boxes matched at IoU "
+            f">= 0.5 with the same class")
+    del raw_c, q_c, raw_h, q_h, outs, cpu
+
+    # --- d. times ------------------------------------------------------------
+    rows = {bsz: collections.defaultdict(list) for bsz in (8, 64)}
+    for bsz, imgs in ((8, u8), (64, u64)):
+        x = torch.from_numpy(imgs).cuda().float() / 255.0
+        for name, model in (("float bf16", f16), ("int8-int8", q8),
+                            ("int8-bf16", qb), ("float bf16", f16)):
+            torch.cuda.reset_peak_memory_stats()
+            fwd = cuda_ms(lambda: model._raw(x), n=3, repeats=3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rate = predict_rate(torch, model, imgs, iters=5)
+            rows[bsz][name].append((fwd, rate, peak))
+        log(f"int8 d: b{bsz} bf16, in turns (float, int8-int8, int8-bf16, "
+            f"float): " + "; ".join(
+                f"{name} forward " + ", ".join(f"{f:.3f}" for f, _, _ in v)
+                + " ms, predict_batch " + ", ".join(f"{r:.1f}" for _, r, _
+                                                     in v)
+                + f" img/s, peak {max(p for _, _, p in v):.2f} GiB"
+                for name, v in rows[bsz].items()) + f" ({card})")
+    x = torch.from_numpy(u64).cuda().float() / 255.0
+    split = collections.defaultdict(float)
+    with torch.inference_mode():
+        times = kernel_times(lambda: q8._raw(x), calls=3)
+    for name, ms in times.items():
+        low = name.lower()
+        kind = ("int8 GEMM" if any(s in low for s in ("gemm", "imma", "xmma",
+                                                      "cutlass", "sm90"))
+                else "copies and casts (im2col, pad, cat)" if any(
+                    s in low for s in ("copy", "cat", "pad"))
+                else "elementwise and other")
+        split[kind] += ms
+    log(f"int8 d: profiler split of one int8-int8 b64 bf16 forward, device "
+        f"ms: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f", sum {sum(split.values()):.3f} ({card})")
+    for name, ms in sorted(times.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"int8 d:   {ms:.3f} ms  {name[:110]}")
+    del x
+    return {"f16": f16, "q8": q8, "q32": q32, "u8": u8, "f32": f32,
+            "forward": rows, "split": dict(split), "launches": launches}
+
+
+def serving_phase(torch, nms_cuda, models, card):
+    """Phase 7e: ``serving.export_detector`` -> ``load_detector`` of the
+    float bf16 "fast" program (b8, float32 input), the int8 "fast" one
+    (b8, uint8 input) and the float "pallas" one (b8): each loaded
+    artifact equals the live ``predict_batch`` (valid equal, boxes and
+    scores within 1e-5) and launches its kernel once a call; then a
+    package-free ("cuda", "cpu") "xla" artifact at b1 float32 (top 64
+    candidates a class) runs on both devices within 1e-3 per box.  Returns
+    the kernels' launches."""
+    import copy
+    from yolov4tpu_torch import serving
+    f16, q8, q32, u8, f32 = (models[k] for k in
+                             ("f16", "q8", "q32", "u8", "f32"))
+    pallas = copy.copy(f16)
+    pallas.config = dataclasses.replace(f16.config, nms_impl="pallas")
+    pallas.sync_params(pallas.params, pallas.state)
+    # The plain exact NMS unrolls its loop over each class's candidates
+    # into the program: 64 of them keep the export short.
+    xla = copy.copy(q32)
+    xla.config = dataclasses.replace(q32.config, nms_impl="xla",
+                                     nms_pre_top_k=64)
+    xla.dequantize()
+    root = SCRATCH / "serving"
+    root.mkdir(parents=True, exist_ok=True)
+    launches = {"suppress_rank": 0, "suppress": 0}
+    for name, model, images, kw, counter in (
+            ("float bf16 'fast' b8 float32", f16, f32, {}, "LAUNCHES"),
+            ("int8 bf16 'fast' b8 uint8", q8, u8,
+             {"input_dtype": "uint8"}, "LAUNCHES"),
+            ("float bf16 'pallas' b8 float32", pallas, f32, {},
+             "SUPPRESS_LAUNCHES")):
+        path = root / "artifact.pt2"
+        total, exported = timed(torch, lambda: serving.export_detector(
+            model, str(path), batch_size=8, **kw))
+        save, _ = timed(torch, lambda: torch.export.save(
+            exported, str(root / "again.pt2")))
+        load, detect = timed(torch, lambda: serving.load_detector(str(path)))
+        setattr(nms_cuda, counter, 0)
+        got = detect(images)
+        torch.cuda.synchronize()
+        calls = getattr(nms_cuda, counter)
+        want = model.predict_batch(images)
+        check(calls == 1, f"{name}: the loaded artifact launched its kernel "
+              f"{calls} times in one call")
+        key = "suppress_rank" if counter == "LAUNCHES" else "suppress"
+        launches[key] += calls
+        check(torch.equal(got[3], want[3]) and all(
+            float((g.float() - w.float()).abs().max()) <= 1e-5
+            for g, w in zip(got[:3], want[:3])),
+            f"{name}: the loaded artifact differs from predict_batch")
+        rates = []
+        for fn in (lambda: detect(images),
+                   lambda: model.predict_batch(images)):
+            for _ in range(2):
+                fn()
+            secs, _ = timed(torch, lambda: [fn() for _ in range(10)])
+            rates.append(80 / secs)
+        log(f"serving: {name}: export {total - save:.2f} s, save {save:.2f} "
+            f"s, {file_mb(path):.1f} MB, load {load:.2f} s; loaded == "
+            f"predict_batch (valid {got[3].tolist()}), kernel launched once "
+            f"a call; {rates[0]:.1f} img/s loaded vs {rates[1]:.1f} "
+            f"predict_batch ({card})")
+        del exported, detect
+    path = root / "package_free.pt2"
+    total, exported = timed(torch, lambda: serving.export_detector(
+        xla, str(path), batch_size=1, platforms=("cuda", "cpu")))
+    check(not [n for n in exported.graph.nodes
+               if "yolov4tpu" in str(n.target)],
+          "the two-platform artifact holds an op of the port")
+    on_card = serving.load_detector(str(path))(f32[:1])
+    on_cpu = serving.load_detector(str(path), device="cpu")(f32[:1])
+    want = xla.predict_batch(f32[:1])
+    check(torch.equal(on_card[3], want[3]) and all(
+        float((g - w).abs().max()) <= 1e-5
+        for g, w in zip(on_card[:3], want[:3])),
+        "the two-platform artifact differs from predict_batch on the card")
+    dev = match_detections(numpy_outputs(on_card, 0), numpy_outputs(on_cpu, 0),
+                           1e-3)
+    log(f"serving: package-free ('cuda', 'cpu') 'xla' f32 b1 artifact: no "
+        f"op of the port, {file_mb(path):.1f} MB, export + save "
+        f"{total:.2f} s; card == predict_batch; card vs CPU "
+        f"{int(want[3][0])} detections, max deviation {dev:.3g} (limit "
+        f"1e-3)")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1699,12 +2121,22 @@ def main() -> int:
     persisted = persistence_phase(torch, nms_cuda, wgrad_cuda, wpath, folder,
                                   lines, card, sum(shapes.values()))
     phase_done("6 (persistence)")
+
+    # --- 7. int8 and serving ---------------------------------------------
+    torch.cuda.empty_cache()
+    models = int8_phase(torch, nms_cuda, wpath, card)
+    served = serving_phase(torch, nms_cuda, models, card)
+    int8_launches = models["launches"]
+    del models
+    torch.cuda.empty_cache()
+    phase_done("7 (int8 and serving)")
     log(f"all phases: {time.perf_counter() - start:.1f} s")
 
     kernels = [{"name": "suppress_rank", "route": "cuda",
                 "source": "yolov4tpu_torch/csrc/suppress_rank.cu",
                 "replaces": "yolov4tpu/ops/nms_pallas.py:191",
-                "launches": launches + persisted["suppress_rank"],
+                "launches": (launches + persisted["suppress_rank"]
+                             + int8_launches + served["suppress_rank"]),
                 "max_abs_err": worst,
                 "ms": k8["ms"], "device_ms": k8["device_ms"],
                 "plain_ms": k8["plain_ms"],
@@ -1713,7 +2145,8 @@ def main() -> int:
                {"name": "suppress", "route": "cuda",
                 "source": "yolov4tpu_torch/csrc/suppress.cu",
                 "replaces": "yolov4tpu/ops/nms_pallas.py:37",
-                "launches": eval_launches + persisted["suppress"],
+                "launches": (eval_launches + persisted["suppress"]
+                             + served["suppress"]),
                 "max_abs_err": sorted_worst,
                 "ms": s8["ms"], "device_ms": s8["device_ms"],
                 "plain_ms": s8["plain_ms"],

@@ -101,6 +101,26 @@ def calibrated(num_classes: int, seed: int = 0, target: float = 30.0):
     return params, state, imgs
 
 
+@functools.lru_cache(maxsize=None)
+def port_calibrated(num_classes: int, seed: int = 0, target: float = 30.0):
+    """``calibrated`` made on the port's side alone (its float32 forward
+    and its ``calibrate_detection_density``), so no JAX program is
+    compiled: (params, state) of CPU tensors and imgs (B,H,W,3) float32 in
+    [0, 1] — read them, do not write them."""
+    from yolov4tpu_torch import weights as tweights
+    from yolov4tpu_torch.models import network as tnetwork
+    params, state = torch_params(num_classes, seed)
+    imgs = images(seed, 2).astype(np.float32) / 255.0
+    with torch.inference_mode():
+        raws = tnetwork.apply_folded(tnetwork.fold_bn(params, state),
+                                     torch.from_numpy(imgs), num_classes,
+                                     csp_repeats=SHALLOW)
+    params, _ = tweights.calibrate_detection_density(
+        params, [r.numpy() for r in raws], num_classes,
+        target_per_image=target)
+    return params, state, imgs
+
+
 def small_tree(seed: int = 0, convs=((3, 3, 8, True), (1, 8, 6, False),
                                       (3, 8, 4, True))):
     """(params, state) numpy pytrees in the JAX layout with the model's

@@ -135,8 +135,10 @@ def test_unported_options_raise(models, tiny_classes, tmp_path):
     with pytest.raises(ValueError, match="unknown nms_impl"):
         tapi.build_infer_fn(tm.config.replace(nms_impl="tf"), 3,
                             torch.float32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tm.quantize(calib_imgs=images(0, 1))
+    # int8 quantization is ported: quantize() switches the copy to int8.
+    assert tm.quantize(calib_imgs=images(0, 1) / 255.0) is tm
+    assert any("wq" in p for p in tm._folded["convs"])
+    assert not any("wq" in p for p in models[1]._folded["convs"])
     unknown = tmp_path / "model.bin"
     unknown.write_bytes(b"")
     with pytest.raises(ValueError, match="unsupported weight file"):

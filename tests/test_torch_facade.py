@@ -1,7 +1,8 @@
 """The port's ``Yolov4`` facade has every method of the JAX package's:
 the ones not ported yet raise ``NotImplementedError`` naming their item in
 ``ROADMAP.md`` (not ``AttributeError``), and take the JAX signatures; the
-ported ``save_model`` / ``load_model`` round-trip the weights exactly.
+ported ``save_model`` / ``load_model`` round-trip the weights exactly
+(``quantize`` / ``dequantize``: test_torch_quantize_facade.py).
 """
 
 import inspect
@@ -18,7 +19,6 @@ from yolov4tpu_torch.weights import force_busy_heads
 
 # method -> (arguments of the call, the ROADMAP.md item its message names)
 STUBS = {
-    "dequantize": ((), "item 10"),
     "distribute": ((), "item 14"),
 }
 

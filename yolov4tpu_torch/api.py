@@ -7,7 +7,8 @@ and ``load_model``; ``predict``, ``predict_img``, ``predict_batch``,
 ``predict_paths``, ``predict_raw``, ``predict_nonms`` (stretch or
 letterbox preprocessing); the mAP pipeline ``export_gt`` /
 ``export_prediction`` / ``eval_map``; ``trainer``, ``fit`` and
-``sync_from_trainer``.  The inference path is the
+``sync_from_trainer``; int8 post-training quantization, ``quantize`` and
+``dequantize`` (``models.quantize``).  The inference path is the
 BN-folded forward (models.network) -> fused decode (ops.detect) ->
 candidate NMS with the CUDA suppression kernel (ops.nms_cuda); with
 ``nms_impl="pallas"`` it is decode -> per-class top-K -> the sorted CUDA
@@ -21,7 +22,8 @@ CPU, where the suppression kernel's plain torch version stands in for it.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,12 +44,31 @@ from .utils.visualize import draw_bbox, get_detection_data
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype):
+def _select_raw_apply(scales, dataflow: str):
+    """The float-vs-int8 forward, shared by every builder of a raw-grid
+    function: None -> the folded float forward; a calibration-scales dict
+    (``models.quantize.calibrate``) -> the int8 forward bound to them."""
+    if scales is not None:
+        from .models.quantize import apply_quantized
+        return functools.partial(apply_quantized, scales=scales,
+                                 dataflow=dataflow)
+    return network.apply_folded
+
+
+def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
+                   quantized: Optional[dict] = None,
+                   quantized_dataflow: str = "int8"):
     """End-to-end inference fn: (folded, images, iou_t, score_t) ->
     (boxes (B,T,4), scores (B,T), classes (B,T), valid_detections (B,)).
 
     ``images`` is (B, H, W, 3) NHWC on the folded params' device: float in
     [0, 1], or uint8 in [0, 255], divided by 255 on the device.
+
+    quantized: None for the float path, or the calibration-scales dict
+    (``models.quantize.calibrate``); then ``folded`` holds int8 params
+    (``prepare_folded`` of ``quantize_folded``'s) and the forward is the
+    int8 one with those static scales.  quantized_dataflow: "int8" (inter-op
+    tensors stay int8) or "bf16".
     """
     if cfg.nms_impl not in ("fast", "xla", "pallas"):
         raise ValueError(f"unknown nms_impl {cfg.nms_impl!r}")
@@ -57,15 +78,14 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype):
                  else combined_nms)
     anchors = cfg.anchors_grouped
     strides, xyscale, img_size = cfg.strides, cfg.xyscale, cfg.img_size
+    apply = _select_raw_apply(quantized, quantized_dataflow)
 
     @torch.inference_mode()
     def infer_fn(folded, images, iou_t, score_t):
         if images.dtype == torch.uint8:
             images = images.to(torch.float32) / 255.0
-        raws = network.apply_folded(folded, images, num_classes,
-                                    compute_dtype,
-                                    csp_repeats=cfg.csp_repeats,
-                                    s2d_stem=cfg.s2d_stem)
+        raws = apply(folded, images, num_classes, compute_dtype,
+                     csp_repeats=cfg.csp_repeats, s2d_stem=cfg.s2d_stem)
         if cfg.nms_impl == "fast":
             return detect_fused(
                 raws, anchors, num_classes, strides, xyscale, img_size[0],
@@ -111,6 +131,8 @@ class Yolov4:
                             for name in self.class_names}
         self._seed = seed
         self._trainer = None
+        self._act_scales = None  # set by quantize(): int8 inference on
+        self._q_dataflow = "int8"
         self.build_model(load_pretrained=bool(weight_path))
 
     # ------------------------------------------------------------------
@@ -143,20 +165,33 @@ class Yolov4:
                 csp_repeats=self.config.csp_repeats)
         self._refresh_inference()
 
-    def _refresh_inference(self):
-        """Fold BN, place the folded params, build the inference function."""
+    def _refresh_inference(self, folded=None):
+        """Fold BN (``quantize`` passes its fold through ``folded``),
+        requantize with the kept calibration scales on a quantized facade,
+        place the params and build the raw and inference functions."""
         if self.config.compute_dtype not in _DTYPES:
             raise ValueError(
                 f"unknown compute_dtype {self.config.compute_dtype!r}")
         self._compute_dtype = _DTYPES[self.config.compute_dtype]
-        self._folded = network.prepare_folded(
-            network.fold_bn(self.params, self.state), self.device,
-            self._compute_dtype)
+        if folded is None:
+            folded = network.fold_bn(self.params, self.state)
+        if self._act_scales is not None:
+            from .models.quantize import quantize_folded
+            folded = quantize_folded(folded, self._act_scales,
+                                     self.num_classes,
+                                     self.config.csp_repeats)
+        self._folded = network.prepare_folded(folded, self.device,
+                                              self._compute_dtype)
+        self._raw_apply = _select_raw_apply(self._act_scales,
+                                            self._q_dataflow)
         self._infer_fn = build_infer_fn(self.config, self.num_classes,
-                                        self._compute_dtype)
+                                        self._compute_dtype,
+                                        quantized=self._act_scales,
+                                        quantized_dataflow=self._q_dataflow)
 
     def sync_params(self, params, state):
-        """Swap in new (params, state) dictionaries (CPU tensors) and refold."""
+        """Swap in new (params, state) dictionaries (CPU tensors) and refold;
+        a quantized facade requantizes with its kept scales."""
         self.params, self.state = params, state
         self._refresh_inference()
 
@@ -172,15 +207,54 @@ class Yolov4:
                                 tree)
             self.sync_params(cpu(trainer.params), cpu(trainer.state))
 
-    def quantize(self, *args, **kwargs):
-        raise NotImplementedError(
-            "int8 post-training quantization is not ported yet "
-            "(ROADMAP.md queue A item 10)")
+    def quantize(self, calib_imgs=None,
+                 calib_paths: Optional[Sequence[str]] = None,
+                 dataflow: str = "int8", calib_method: str = "max",
+                 calib_percentile: float = 99.9):
+        """Switch inference to int8 (post-training quantization).
+
+        Calibrates per-tensor activation scales on representative images in
+        the compute dtype, on the facade's device, and rebuilds the
+        inference functions over int8 weights (``models.quantize``).
+        Opt-in: int8 trades the float path's 1e-3 per-box fidelity for the
+        int8 GEMMs; validate mAP on your evaluation set after quantizing.
+
+        calib_imgs: (N,H,W,3) float [0,1] model-space images, and/or
+        calib_paths: image files run through ``preprocess_img``.
+        dataflow: "int8" keeps inter-op activations int8; "bf16" is the
+        per-conv scheme.  calib_method: "max" or "percentile" (clip
+        |activation| at ``calib_percentile``; see ``quantize.calibrate``).
+        """
+        if dataflow not in ("int8", "bf16"):
+            raise ValueError(
+                f"dataflow must be 'int8' or 'bf16', got {dataflow!r}")
+        import cv2
+        from .models.quantize import calibrate
+        imgs = []
+        if calib_imgs is not None:
+            imgs.append(np.asarray(calib_imgs, np.float32))
+        if calib_paths:
+            imgs.append(np.stack([
+                self.preprocess_img(cv2.cvtColor(_imread(p),
+                                                 cv2.COLOR_BGR2RGB))
+                for p in calib_paths]).astype(np.float32))
+        if not imgs:
+            raise ValueError("quantize() needs calib_imgs and/or calib_paths")
+        folded = network.fold_bn(self.params, self.state)
+        self._act_scales = calibrate(
+            network.prepare_folded(folded, self.device, self._compute_dtype),
+            np.concatenate(imgs), self.num_classes, self._compute_dtype,
+            csp_repeats=self.config.csp_repeats, method=calib_method,
+            percentile=calib_percentile)
+        self._q_dataflow = dataflow
+        self._refresh_inference(folded)
+        return self
 
     def dequantize(self):
-        raise NotImplementedError(
-            "int8 post-training quantization, and so dequantize, is not "
-            "ported yet (ROADMAP.md queue A item 10)")
+        """Return inference to the full-precision folded path."""
+        self._act_scales = None
+        self._refresh_inference()
+        return self
 
     def distribute(self, num_devices: Optional[int] = None,
                    axis: str = "batch"):
@@ -194,7 +268,9 @@ class Yolov4:
     def save_model(self, path: str):
         """Save params + BN state (reference save_model, models.py:92-93): a
         darknet ``.weights`` file, else an ``.npz`` checkpoint in the JAX
-        package's layout (``.npz`` is appended to a path without it)."""
+        package's layout (``.npz`` is appended to a path without it).  A
+        quantized facade writes its float weights, as the JAX package's
+        does."""
         if path.endswith(".weights"):
             weights.save_darknet_weights(self.params, self.state, path)
         else:
@@ -259,7 +335,7 @@ class Yolov4:
 
     def _raw(self, images):
         with torch.inference_mode():
-            return network.apply_folded(
+            return self._raw_apply(
                 self._folded, images, self.num_classes, self._compute_dtype,
                 csp_repeats=self.config.csp_repeats,
                 s2d_stem=self.config.s2d_stem)

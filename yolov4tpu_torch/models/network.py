@@ -402,24 +402,46 @@ def prepare_folded(folded, device, compute_dtype=torch.float32):
     """Folded params on ``device`` in ``compute_dtype`` with channels_last
     kernels, plus the s2d stem kernels (key ``"s2d"``), built once so the
     forward does not rebuild them per call.  Casting once here equals the
-    per-conv cast of the JAX forward: both round the same f32 values."""
-    convs = [{"w": p["w"].to(device, compute_dtype).contiguous(
-                  memory_format=torch.channels_last),
-              "b": p["b"].to(device, compute_dtype)}
-             for p in folded["convs"]]
+    per-conv cast of the JAX forward: both round the same f32 values.
+
+    A conv of int8 params (``quantize.quantize_folded``) keeps ``wq`` int8,
+    laid out once as its GEMM's (Co, kh*kw*Ci) matrix, and its ``sw`` and
+    ``b`` in float32; their calibration scales (numpy) are kept as they
+    are."""
+    from .quantize import gemm_weight
+
+    def prepare(p):
+        if "wq" in p:
+            return {"wq": gemm_weight(p["wq"]).to(device),
+                    "sw": p["sw"].to(device, torch.float32),
+                    "b": p["b"].to(device, torch.float32)}
+        return {"w": p["w"].to(device, compute_dtype).contiguous(
+                    memory_format=torch.channels_last),
+                "b": p["b"].to(device, compute_dtype)}
+
+    convs = [prepare(p) for p in folded["convs"]]
     w1p, b1p, w2p = _s2d_stem_kernels(folded["convs"][0]["w"],
                                       folded["convs"][0]["b"],
                                       folded["convs"][1]["w"])
     w1p, w2p = (t.to(device, compute_dtype).contiguous(
         memory_format=torch.channels_last) for t in (w1p, w2p))
-    return {"convs": convs, "s2d": (w1p, b1p.to(device, compute_dtype), w2p)}
+    out = {"convs": convs, "s2d": (w1p, b1p.to(device, compute_dtype), w2p)}
+    if "scales" in folded:
+        out["scales"] = folded["scales"]
+    return out
+
+
+def cast(x, dtype):
+    """``x.to(dtype)``, left out where it changes nothing, so that an
+    exported program (``serving``) holds no casts that do nothing."""
+    return x if x.dtype == dtype else x.to(dtype)
 
 
 def _bias(b, dtype):
     """(C,) bias -> (1, C, 1, 1) for NCHW activations.  Added after the conv,
     in the compute dtype, as the JAX forward does (not fused into the conv,
     which would add it before the bf16 output rounding)."""
-    return b.to(dtype).view(1, -1, 1, 1)
+    return cast(b, dtype).view(1, -1, 1, 1)
 
 
 class _FoldedApplyOps(_NCHWOps):
@@ -444,10 +466,10 @@ class _FoldedApplyOps(_NCHWOps):
         b, c, h, w = x.shape
         xb = x.permute(0, 2, 3, 1).reshape(b, h // 2, 2, w // 2, 2, c)
         xb = xb.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
-        xb = xb.permute(0, 3, 1, 2).to(self.dtype)
-        y = F.conv2d(xb, w1p.to(self.dtype), padding=1)
+        xb = cast(xb.permute(0, 3, 1, 2), self.dtype)
+        y = F.conv2d(xb, cast(w1p, self.dtype), padding=1)
         y = _activate(y + _bias(b1p, self.dtype), activation)
-        y = F.conv2d(F.pad(y, (1, 0, 1, 0)), w2p.to(self.dtype))
+        y = F.conv2d(F.pad(y, (1, 0, 1, 0)), cast(w2p, self.dtype))
         # conv1's own activation is applied by the (skipped) second conv()
         # call, so any activation combination stays exact.
         return y + _bias(self.convs[1]["b"], self.dtype)
@@ -470,13 +492,12 @@ class _FoldedApplyOps(_NCHWOps):
             return _activate(x, activation)
         p = self.convs[self.i]
         self.i += 1
-        x = x.to(self.dtype)
+        x, w = cast(x, self.dtype), cast(p["w"], self.dtype)
         if downsampling:
             # Darknet-compatible top/left zero pad, then stride-2 VALID.
-            y = F.conv2d(F.pad(x, (1, 0, 1, 0)), p["w"].to(self.dtype),
-                         stride=2)
+            y = F.conv2d(F.pad(x, (1, 0, 1, 0)), w, stride=2)
         else:
-            y = F.conv2d(x, p["w"].to(self.dtype), padding=kernel_size // 2)
+            y = F.conv2d(x, w, padding=kernel_size // 2)
         return _activate(y + _bias(p["b"], self.dtype), activation)
 
 

@@ -50,10 +50,18 @@ def _scale_meta(grid_h: int, grid_w: int,
 
 
 @functools.lru_cache(maxsize=16)
+def _scale_meta_cached(device: torch.device, *key) -> torch.Tensor:
+    return torch.from_numpy(_scale_meta(*key)).to(device)
+
+
 def _scale_meta_on(device: torch.device, *key) -> torch.Tensor:
     """``_scale_meta`` as a tensor on ``device``, copied there once.  Shared
-    by every caller: read it, do not write it."""
-    return torch.from_numpy(_scale_meta(*key)).to(device)
+    by every caller: read it, do not write it.  While ``torch.export``
+    traces, the tensor is made anew (a constant of the program): a cached
+    one would be the tracer's fake tensor."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(_scale_meta(*key)).to(device)
+    return _scale_meta_cached(device, *key)
 
 
 def _gather_rows(x, idx):

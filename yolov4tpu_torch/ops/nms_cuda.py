@@ -26,7 +26,12 @@ equals the plain version bit for bit.
 Each kernel's wrapper (``suppress_rank``, ``suppress``) launches it on a
 CUDA tensor and runs its plain torch version (``suppress_rank_reference``,
 ``suppress_reference``) on a CPU tensor; nothing else chooses between them.
-The kernels are built at first use by ``ops.build``.
+The wrappers are ``torch.library`` custom ops
+(``yolov4tpu_torch::suppress_rank``, ``yolov4tpu_torch::suppress``) with
+fake implementations, so ``torch.export`` traces the inference path
+through them (``serving.export_detector``): a ``ctypes`` launch cannot be
+traced.  A program exported with them resolves the ops once this module
+has been imported.  The kernels are built at first use by ``ops.build``.
 """
 
 from __future__ import annotations
@@ -78,8 +83,12 @@ def _check(coords, scores, rank):
         raise ValueError("coords, scores and rank must be on one device")
 
 
-def suppress_rank(coords, scores, rank, iou_threshold: float,
-                  score_threshold: float, max_per_class: int):
+@torch.library.custom_op(
+    "yolov4tpu_torch::suppress_rank", mutates_args=(),
+    schema="(Tensor coords, Tensor scores, Tensor rank, float iou_threshold, "
+           "float score_threshold, int max_per_class) -> Tensor")
+def suppress_rank(coords, scores, rank, iou_threshold, score_threshold,
+                  max_per_class):
     """Greedy per-class NMS in rank order with the per-class cap.
 
     coords (B, 4, K) float32 corner planes (x1, y1, x2, y2; lo <= hi),
@@ -117,6 +126,13 @@ def suppress_rank(coords, scores, rank, iou_threshold: float,
                            f"{err}")
     LAUNCHES += 1
     return keep
+
+
+@suppress_rank.register_fake
+def _suppress_rank_fake(coords, scores, rank, iou_threshold, score_threshold,
+                        max_per_class):
+    _check(coords, scores, rank)
+    return torch.empty_like(scores)
 
 
 def suppress_rank_reference(coords, scores, rank, iou_threshold: float,
@@ -273,7 +289,10 @@ def _loop_bounds(valid):
     return valid.sum(dim=-1).amax(dim=-1).to(torch.int32)
 
 
-def suppress(coords, valid, iou_threshold: float):
+@torch.library.custom_op(
+    "yolov4tpu_torch::suppress", mutates_args=(),
+    schema="(Tensor coords, Tensor valid, float iou_threshold) -> Tensor")
+def suppress(coords, valid, iou_threshold):
     """Greedy per-class NMS over score-sorted candidates.
 
     coords (B, 4, C, K) float32 corner planes (x1, y1, x2, y2; lo <= hi) of
@@ -310,6 +329,12 @@ def suppress(coords, valid, iou_threshold: float):
         raise RuntimeError(f"suppress kernel launch failed: CUDA error {err}")
     SUPPRESS_LAUNCHES += 1
     return keep
+
+
+@suppress.register_fake
+def _suppress_fake(coords, valid, iou_threshold):
+    _check_sorted(coords, valid)
+    return torch.empty_like(valid)
 
 
 def suppress_reference(coords, valid, iou_threshold: float):
