@@ -90,7 +90,32 @@ exits non-zero without printing a result:
      ``predict_batch`` and launching its kernel once a call, and a
      package-free ("cuda", "cpu") "xla" artifact run on both devices, with
      the export, save and load times and sizes.  Its launches are counted
-     into the summary.
+     into the summary;
+  8. the augmented training ingest and multi-scale training: (a) a fresh
+     g++ build of the native ingest library (``yolov4tpu_torch/csrc/
+     yolodata.cpp``) in a new process, its variant, seconds, the host's
+     cores and the library's OpenMP threads; (b) 38 JPEGs at photo sizes
+     (640x480 to 1920x1080) with 1-8 boxes each, one PNG and one JPEG with
+     an EXIF orientation tag; (c) at 416^2 b8, the native ingest against
+     the Python path with the same seed for plain, mosaic+hflip+jitter,
+     letterbox+hflip and jitter batches (boxes and label grids bit-equal,
+     images within the JAX tests' bounds), two native runs bit-equal, the
+     worker pool equal to the sequential path, and each batch's route from
+     the counters; (d) ingest img/s at 416^2 b8 for {plain,
+     mosaic+hflip+jitter, letterbox+hflip+jitter, cutmix} x {Python
+     sequential, Python pool, native}; (e) the slice's main path:
+     ``Yolov4(pallas_wgrad=True)`` in bfloat16 at full depth, COCO-80,
+     random darknet weights, ``fit`` 2 epochs at b8 over the native
+     augmented generator with ``multi_scale=(320, 608)`` redrawn every
+     batch, the wgrad kernel's launch counts zeroed just before and read
+     just after (37 a step at every size, all on the tensor cores), each
+     step's size, time and loss, peak memory, then ``predict_batch`` at
+     416^2 (one ``suppress_rank`` launch); (f) the wgrad kernel against its
+     plain version at every shape of 320^2 and 608^2, b8, float32 and
+     bfloat16, and its per-step device time beside cuDNN's and the bound;
+     (g) at b32, the train step fed by ``prefetch`` over the native
+     augmented generator against the same step on a batch already on the
+     card, and the share of the epoch the card waits on the host.
 
 Each phase prints its seconds.  The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times (``device_ms`` from CUDA-graph
@@ -843,13 +868,10 @@ def wgrad_check(torch, wgrad_cuda, x, dy, label, exact=False):
     return err, err / max(scale, 1e-30)
 
 
-def wgrad_phase(torch, wgrad_cuda, shapes):
-    """Phase 4a: the kernel against its plain version at the training
-    path's shapes (b8, float32 and bfloat16), delta inputs (exactly equal),
-    ragged and padded-channel shapes, views with a storage offset, and two
-    launches bit-equal.  Returns the largest abs error at the main path's
-    b8 bf16."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def wgrad_shape_checks(torch, wgrad_cuda, shapes, gen):
+    """The kernel against its plain version at each (H, Ci, Co) of
+    ``shapes``, b8, float32 and bfloat16.  Returns the largest bf16 abs
+    error."""
     worst_bf16 = 0.0
     for (h, ci, co), n in sorted(shapes.items(), key=lambda kv: -kv[0][0]):
         for dtype in (torch.float32, torch.bfloat16):
@@ -861,6 +883,17 @@ def wgrad_phase(torch, wgrad_cuda, shapes):
             log(f"wgrad kernel vs plain: b8 {h}x{h} {ci}->{co} "
                 f"({n} convs) {str(dtype)[6:]}: max abs err {err:.3g} "
                 f"({rel:.2g} of the largest entry, limit {WGRAD_TOL})")
+    return worst_bf16
+
+
+def wgrad_phase(torch, wgrad_cuda, shapes):
+    """Phase 4a: the kernel against its plain version at the training
+    path's shapes (b8, float32 and bfloat16), delta inputs (exactly equal),
+    ragged and padded-channel shapes, views with a storage offset, and two
+    launches bit-equal.  Returns the largest abs error at the main path's
+    b8 bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst_bf16 = wgrad_shape_checks(torch, wgrad_cuda, shapes, gen)
     for dtype in (torch.float32, torch.bfloat16):
         for corner in ((0, 0), (12, 12), (0, 12)):
             x = torch.zeros((1, 13, 13, 8), device="cuda", dtype=dtype)
@@ -1929,6 +1962,480 @@ def serving_phase(torch, nms_cuda, models, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Augmented ingest and multi-scale training
+# ---------------------------------------------------------------------------
+
+# Photo sizes (h, w) of the ingest data set: VGA to full HD.
+PHOTO_SIZES = ((480, 640), (600, 800), (768, 1024), (720, 1280),
+               (900, 1200), (1080, 1920))
+# Seed of the main path's generator: over its 10 batches (40 images, b8,
+# 2 epochs) it draws 608, 448, 608, 576, 448, 544, 416, 416, 320, 576.
+MULTISCALE_SEED = 7
+
+
+def exif_rotated(jpeg: bytes, orientation: int = 6) -> bytes:
+    """The JPEG with a minimal EXIF APP1 segment (little-endian TIFF, one
+    IFD0 entry: the orientation tag) right after its SOI marker."""
+    tiff = (b"II" + (0x2A).to_bytes(2, "little") + (8).to_bytes(4, "little")
+            + (1).to_bytes(2, "little")
+            + (0x0112).to_bytes(2, "little") + (3).to_bytes(2, "little")
+            + (1).to_bytes(4, "little")
+            + orientation.to_bytes(2, "little") + b"\x00\x00"
+            + (0).to_bytes(4, "little"))
+    payload = b"Exif\x00\x00" + tiff
+    app1 = b"\xff\xe1" + (len(payload) + 2).to_bytes(2, "big") + payload
+    return jpeg[:2] + app1 + jpeg[2:]
+
+
+def write_photo_set(folder: pathlib.Path, n: int = 38, seed: int = 8,
+                    sizes=PHOTO_SIZES):
+    """n JPEGs at photo sizes with 1-8 boxes each, one PNG, and one JPEG
+    whose EXIF orientation is 6 (cv2 rotates it, the native decoder refuses
+    it: both are redone in Python), with their annotation file -> its
+    lines."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    folder.mkdir(parents=True, exist_ok=True)
+    names = [f"photo{i}.jpg" for i in range(n)] + ["photo.png", "exif6.jpg"]
+    lines = []
+    for i, name in enumerate(names):
+        h, w = sizes[i % len(sizes)]
+        coarse = rng.uniform(0, 255, (h // 32, w // 32, 3)).astype(np.float32)
+        img = cv2.resize(coarse, (w, h)) + rng.normal(0, 12, (h, w, 3))
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        path = folder / name
+        cv2.imwrite(str(path), img)
+        if name == "exif6.jpg":
+            path.write_bytes(exif_rotated(path.read_bytes()))
+            h, w = w, h              # boxes in the displayed (rotated) frame
+        boxes = []
+        for _ in range(int(rng.integers(1, 9))):
+            x1 = int(rng.integers(0, w - w // 8))
+            y1 = int(rng.integers(0, h - h // 8))
+            x2 = int(rng.integers(x1 + w // 16, min(x1 + w // 2, w)))
+            y2 = int(rng.integers(y1 + h // 16, min(y1 + h // 2, h)))
+            boxes.append(f"{x1},{y1},{x2},{y2},{int(rng.integers(0, 80))}")
+        lines.append(f"{name} " + " ".join(boxes))
+    (folder / "annotations.txt").write_text("\n".join(lines) + "\n")
+    return lines
+
+
+def route_counts():
+    """(native plain batches, native augmented batches, Python batches,
+    samples redone in Python) so far."""
+    from yolov4tpu_torch import native
+    from yolov4tpu_torch.data import pipeline
+    return (native.NATIVE_BATCHES, native.NATIVE_AUG_BATCHES,
+            pipeline.PYTHON_BATCHES, pipeline.PYTHON_REDO_SAMPLES)
+
+
+def since(before):
+    return tuple(a - b for a, b in zip(route_counts(), before))
+
+
+AUGMENTED = dict(use_mosaic=True, use_hflip=True, use_color_jitter=True)
+
+
+def native_build_phase(card):
+    """Phase 8a: a fresh build of the native ingest library in a new
+    process (its seconds), and the variant this process loaded."""
+    import os
+    import tempfile
+
+    from yolov4tpu_torch import native
+    code = ("import pathlib, sys, time\n"
+            "from yolov4tpu_torch import native\n"
+            "native.BUILD_DIR = pathlib.Path(sys.argv[1])\n"
+            "t0 = time.perf_counter()\n"
+            "ok = native.available()\n"
+            "print(ok, native.build_variant(), time.perf_counter() - t0)\n")
+    with tempfile.TemporaryDirectory(dir=SCRATCH) as tmp:
+        proc = subprocess.run([sys.executable, "-c", code, tmp], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600,
+                              check=True)
+    ok, fresh_variant, secs = proc.stdout.split()
+    check(ok == "True", f"the native library did not build: {proc.stderr}")
+    check(native.available(), "the native library did not load")
+    variant = native.build_variant()
+    check(variant == fresh_variant, f"this process loaded {variant}, a "
+          f"fresh build gave {fresh_variant}")
+    for name, extra in native.VARIANTS:
+        if name == variant:
+            break
+        errors = [line for line in native.variant_path(extra).with_suffix(
+            ".log").read_text().splitlines() if "error" in line]
+        log(f"native variant {name} did not build: "
+            f"{errors[0] if errors else 'no error line'}")
+    log(f"native ingest library: variant {variant} (libjpeg "
+        f"{native.has_jpeg()}), {native.library_path().name}; a fresh g++ "
+        f"build of it took {float(secs):.2f} s; host os.cpu_count() "
+        f"{os.cpu_count()}, the library's OpenMP threads "
+        f"{native.num_threads()}, torch intra-op threads "
+        f"{__import__('torch').get_num_threads()} ({card})")
+    return variant
+
+
+def ingest_checks(native, folder, lines, size: int, workers: int):
+    """Phase 8c: at size^2 b8, native against Python with the same seed:
+    boxes and label grids bit-equal, images within the JAX tests' bounds
+    (tests/test_pipeline.py:431 for the plain fused ingest at full decode,
+    :534-536 for the augmented one); two native runs bit-equal; the pool
+    equal to the sequential Python path.  Asserts the route the build
+    variant implies with the counters."""
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+    cases = {"plain (exact decode)": dict(fast_decode=False),
+             "mosaic+hflip+jitter": AUGMENTED,
+             "letterbox+hflip": dict(letterbox=True, use_hflip=True),
+             "jitter": dict(use_color_jitter=True)}
+    for name, aug in cases.items():
+        plain = name.startswith("plain")
+        cfg = dataclasses.replace(DEFAULT_CONFIG, img_size=(size, size, 3),
+                                  num_workers=workers, **aug)
+        gn, gp = (DataGenerator(lines, str(CLASSES), str(folder), config=cfg,
+                                seed=3, use_native=use) for use in (True,
+                                                                    False))
+        before = route_counts()
+        worst = 0.0
+        for i in range(len(gn)):
+            bn = gn.get_batch(i)
+            mid = route_counts()
+            bp = gp.get_batch(i)
+            check(route_counts()[2] == mid[2] + 1, f"{name}: the Python "
+                  f"generator did not take the Python path")
+            check(np.array_equal(bn["boxes"], bp["boxes"]) and all(
+                np.array_equal(a, b) for a, b in zip(bn["labels"],
+                                                     bp["labels"])),
+                  f"{name}: boxes or label grids differ from the Python "
+                  f"path's")
+            diff = np.abs(bn["image"] - bp["image"])
+            lo, hi = float(bn["image"].min()), float(bn["image"].max())
+            if plain:   # tests/test_pipeline.py:431
+                err = float(diff.max())
+                check(err < 2.5 / 255, f"{name}: images differ by {err}")
+            else:       # tests/test_pipeline.py:534-536
+                err = float(diff.mean())
+                check(err < 0.08 and lo >= 0 and hi <= 1, f"{name}: images "
+                      f"differ by {err} on average, range [{lo}, {hi}]")
+            worst = max(worst, err)
+        d = since(before)
+        want = ((len(gn), 0) if plain else (0, len(gn))) \
+            if native.has_jpeg() else (0, 0)
+        check(d[:2] == want, f"{name}: native batches {d[:2]}, want {want} "
+              f"from the {native.build_variant()} build")
+        log(f"ingest {size}^2 b8 {name}: native == Python path for "
+            f"{len(gn)} batches (boxes and label grids bit-equal, images "
+            f"{'max' if plain else 'mean'} abs diff up to {worst:.4f}); "
+            f"routes native plain {d[0]}, native augmented {d[1]}, Python "
+            f"{d[2] - len(gn)}, samples redone in Python {d[3]}")
+    cfg = dataclasses.replace(DEFAULT_CONFIG, img_size=(size, size, 3),
+                              num_workers=workers, **AUGMENTED)
+    runs = [DataGenerator(lines, str(CLASSES), str(folder), config=cfg,
+                          seed=5).get_batch(0) for _ in range(2)]
+    check(all(np.array_equal(runs[0][k], runs[1][k])
+              for k in ("image", "boxes"))
+          and all(np.array_equal(a, b) for a, b in
+                  zip(runs[0]["labels"], runs[1]["labels"])),
+          "two native augmented runs differ")
+    pools = [DataGenerator(lines, str(CLASSES), str(folder), seed=5,
+                           use_native=False,
+                           config=dataclasses.replace(cfg, num_workers=w))
+             for w in (1, workers)]
+    a, b = (g.get_batch(0) for g in pools)
+    check(np.array_equal(a["image"], b["image"])
+          and np.array_equal(a["boxes"], b["boxes"]),
+          f"the Python pool of {workers} workers != the sequential path")
+    for g in pools:
+        g.close()
+    log(f"ingest {size}^2 b8 mosaic+hflip+jitter: two native runs bit-equal; "
+        f"the Python pool of {workers} workers == the sequential path")
+
+
+def ingest_rates(native, folder, lines, size: int, workers: int, card):
+    """Phase 8d: host ingest img/s at size^2 b8, median of three epochs, for
+    each augmentation on each route; the counters say which route made the
+    batches."""
+    import os
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+    cells = {"plain": {}, "mosaic+hflip+jitter": AUGMENTED,
+             "letterbox+hflip+jitter": dict(letterbox=True, use_hflip=True,
+                                            use_color_jitter=True),
+             "cutmix": dict(use_cutmix=True)}
+    routes = {"Python sequential": (False, 1),
+              f"Python pool ({workers} workers)": (False, workers),
+              f"native ({native.num_threads()} OpenMP threads)":
+                  (True, workers)}
+    rates = {}
+    for cell, aug in cells.items():
+        for route, (use, w) in routes.items():
+            cfg = dataclasses.replace(DEFAULT_CONFIG, num_workers=w,
+                                      img_size=(size, size, 3), **aug)
+            gen = DataGenerator(lines, str(CLASSES), str(folder), config=cfg,
+                                seed=4, use_native=use)
+            before = route_counts()
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for i in range(len(gen)):
+                    gen.get_batch(i)
+                runs.append(len(lines) / (time.perf_counter() - t0))
+                gen.on_epoch_end()
+            gen.close()
+            d = since(before)
+            decode = "native" if native.has_jpeg() else "cv2"
+            made = ("native plain ingest" if d[0] else
+                    "native augmented ingest" if d[1] else
+                    "the Python path" if not use else
+                    f"the Python pool ({decode} decode)" if d[2] else
+                    "cv2 decode + the native resize")
+            rate = statistics.median(runs)
+            rates[(cell, route)] = rate
+            log(f"ingest rate {size}^2 b8 {cell}, {route}: {rate:.1f} img/s "
+                f"(median of {', '.join(f'{r:.1f}' for r in runs)}; "
+                f"{3 * len(gen)} batches made by {made}, {d[3]} samples "
+                f"redone in Python; host {os.cpu_count()} cores; {card})")
+    return rates
+
+
+def multiscale_fit_phase(torch, wgrad_cuda, nms_cuda, wpath, folder, lines,
+                         card, workers: int, base: int = 416,
+                         scales=(320, 608), batch: int = 8):
+    """Phase 8e, the slice's main path: ``Yolov4(pallas_wgrad=True)`` in
+    bf16 at full depth, COCO-80, random darknet weights, ``fit`` 2 epochs
+    at b8 over the native augmented generator (mosaic, hflip, colour
+    jitter, multi-scale redrawn every batch), each step timed; then
+    ``predict_batch`` at the base size on the trained weights.  Returns
+    (wgrad launches, suppress_rank launches)."""
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+    from yolov4tpu_torch.native import has_jpeg
+
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG, pallas_wgrad=True, compute_dtype="bfloat16",
+        img_size=(base, base, 3), batch_size=batch, num_workers=workers,
+        multi_scale=scales, multi_scale_interval=1, **AUGMENTED)
+    gen = DataGenerator(lines, str(CLASSES), str(folder), config=cfg,
+                        seed=MULTISCALE_SEED)
+    check(gen.use_native, "the generator did not load the native library")
+    model = Yolov4(weight_path=str(wpath), class_name_path=str(CLASSES),
+                   config=cfg)
+    trainer = model.trainer()
+    inner = trainer.train_step
+    steps = []
+
+    def timed_step(b):
+        start = time.perf_counter()
+        metrics = inner(b)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        steps.append((int(b["image"].shape[1]), start, time.perf_counter(),
+                      loss))
+        return metrics
+
+    trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    before = route_counts()
+    wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+    t0 = time.perf_counter()
+    history = model.fit(gen, epochs=2, verbose=False)
+    torch.cuda.synchronize()
+    launches, tc = wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    d = since(before)
+    gen.close()
+    sizes = [s for s, _, _, _ in steps]
+    per_step = {s: sum(wgrad_shapes(s).values()) for s in set(sizes)}
+    check(len(steps) == 2 * len(gen), f"fit ran {len(steps)} steps")
+    check(set(per_step.values()) == {37}, f"3x3 stride-1 convs per size "
+          f"{per_step}, not 37")
+    check(launches == tc == 37 * len(steps), f"wgrad launched {launches} "
+          f"times ({tc} on the tensor cores) in {len(steps)} steps, not "
+          f"{37 * len(steps)}")
+    check(len(set(sizes)) >= 3, f"only the sizes {sorted(set(sizes))} drawn")
+    check(all(np.isfinite(l) for *_, l in steps)
+          and all(np.isfinite(h["loss"]) for h in history),
+          f"non-finite loss: {[l for *_, l in steps]}")
+    if has_jpeg():
+        check(d[1] == len(steps) and d[0] == 0 and d[2] == 0,
+              f"routes {d}: every batch should be native augmented")
+        check(d[3] >= 4, f"only {d[3]} samples redone in Python: the PNG "
+              f"and the EXIF JPEG are each one sample's image every epoch")
+    else:
+        check(d[2] == len(steps) and d[:2] == (0, 0), f"routes {d}: without "
+              f"libjpeg every augmented batch takes the Python pool")
+    gaps = [steps[0][1] - t0] + [b[1] - a[2] for a, b in
+                                 zip(steps, steps[1:])]
+    busy = sum(e - s for _, s, e, _ in steps)
+    log(f"main path (multi-scale training): fit 2 epochs x {len(gen)} steps "
+        f"at b{batch} bf16, pallas_wgrad, mosaic+hflip+jitter, multi_scale="
+        f"{scales} every batch: sizes drawn {sizes} ({len(set(sizes))} "
+        f"distinct); wgrad launched {launches} times ({tc} on the tensor "
+        f"cores, 37 a step at every size); routes: native augmented "
+        f"batches {d[1]} (samples redone in Python {d[3]}), Python batches "
+        f"{d[2]}; losses "
+        f"{[round(l, 1) for *_, l in steps]}; fit {fit_s:.1f} s, steps "
+        f"{busy:.1f} s, waits on the host {sum(gaps):.2f} s (first "
+        f"{gaps[0]:.2f} s, then {sum(gaps[1:]):.2f} s); peak memory "
+        f"{peak:.1f} GiB ({card})")
+    for s in sorted(set(sizes)):
+        times = [1e3 * (e - b) for z, b, e, _ in steps if z == s]
+        steady = (f"steady {statistics.median(times[1:]):.1f} ms "
+                  f"({len(times) - 1})" if len(times) > 1 else "no steady "
+                  "step")
+        log(f"  {s}x{s}: first step {times[0]:.1f} ms, {steady}; "
+            f"{batch * 1e3 / times[-1]:.1f} img/s at its last step")
+
+    u8 = scene(12, 8, base)
+    nms_cuda.LAUNCHES = 0
+    boxes, scores, classes, valid = model.predict_batch(u8)
+    torch.cuda.synchronize()
+    rl = nms_cuda.LAUNCHES
+    check(rl == 1, f"suppress_rank launched {rl} times in one predict_batch")
+    check(tuple(boxes.shape) == (8, 100, 4) and all(
+        bool(torch.isfinite(o.float()).all())
+        for o in (boxes, scores, classes, valid)),
+        "predict_batch after the multi-scale fit")
+    log(f"predict_batch {base}^2 on the trained weights: finite, valid "
+        f"{valid.tolist()}, suppress_rank launched {rl} time")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return launches, rl
+
+
+def wgrad_sizes_phase(torch, wgrad_cuda, card, sides=(320, 608)):
+    """Phase 8f: the wgrad kernel against its plain version at every shape
+    of the training path at each side (b8, float32 and bfloat16), and its
+    per-step device time beside cuDNN's and the bound (``wgrad_times``).
+    Returns (the per-step times by side, the largest bf16 abs error)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out, worst_all = {}, 0.0
+    for side in sides:
+        shapes = wgrad_shapes(side)
+        check(sum(shapes.values()) == 37, f"{side}: {dict(shapes)}")
+        worst = wgrad_shape_checks(torch, wgrad_cuda, shapes, gen)
+        step = wgrad_times(torch, wgrad_cuda, shapes, card)
+        log(f"wgrad at {side}^2: {len(shapes)} shapes, largest bf16 abs err "
+            f"{worst:.3g}; per b8 bf16 step kernel {step['ms']:.3f} ms, "
+            f"cuDNN {step['library_ms']:.3f} ms, bound "
+            f"{step['bound_ms']:.4f} ms ({card})")
+        out[str(side)] = {k: step[k] for k in ("ms", "library_ms",
+                                                "bound_ms", "plain_ms")}
+        worst_all = max(worst_all, worst)
+    return out, worst_all
+
+
+def starvation_phase(torch, wgrad_cuda, wpath, folder, lines, card,
+                     workers: int, size: int = 416, batch: int = 32,
+                     steps: int = 10):
+    """Phase 8g: does the host starve the step?  At b32 bf16 with the
+    kernel, the train step's img/s on one batch already on the card against
+    ``fit`` over the native augmented generator (prefetch thread, pinned
+    copies), and the share of that epoch the card waits on the host:
+    1 - steps x on-card step time / epoch time.  Returns the wgrad
+    launches."""
+    from yolov4tpu_torch import train, weights
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG, pallas_wgrad=True, compute_dtype="bfloat16",
+        img_size=(size, size, 3), batch_size=batch, num_workers=workers,
+        **AUGMENTED)
+    many = (lines * (-(-steps * batch // len(lines))))[:steps * batch]
+    gen = DataGenerator(many, str(CLASSES), str(folder), config=cfg, seed=11)
+    p0, s0 = weights.load_darknet_weights(str(wpath), 80)
+    wgrad_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for i in range(3):
+        gen.get_batch(i)
+    ingest = 3 * batch / (time.perf_counter() - t0)
+    # The step on one batch on the card, warmed up; a second trainer from
+    # the same weights then fits (the allocator's cache is warm, and its
+    # weights have not trained on one batch 7 times).
+    trainer = train.Trainer(cfg, 80, p0, s0)
+    dev = trainer._place(train.tree_map(torch.as_tensor, gen.get_batch(3)))
+    for _ in range(2):
+        trainer.train_step(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        trainer.train_step(dev)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    del trainer, dev
+    trainer = train.Trainer(cfg, 80, p0, s0)
+    calls = []
+    inner = trainer.train_step
+    trainer.train_step = lambda b: (calls.append(time.perf_counter()),
+                                    inner(b))[1]
+    gen.on_epoch_end()
+    before = route_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = trainer.fit(gen, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    fill = calls[0] - t0
+    d = since(before)
+    gen.close()
+    check(np.isfinite(history[-1]["loss"]), f"loss {history}")
+    check(wgrad_cuda.LAUNCHES == 37 * (7 + steps), f"wgrad launched "
+          f"{wgrad_cuda.LAUNCHES} times in {7 + steps} steps")
+    starved = max(0.0, 1 - steps * step_s / epoch_s)
+    after_fill = max(0.0, 1 - steps * step_s / (epoch_s - fill))
+    log(f"host vs step at b{batch} {size}^2 bf16 pallas_wgrad, "
+        f"mosaic+hflip+jitter: ingest alone {ingest:.1f} img/s; the step "
+        f"on a batch on the card {batch / step_s:.1f} img/s "
+        f"({1e3 * step_s:.1f} ms); fit over prefetch of the generator "
+        f"(use_native=True; native augmented batches {d[1]}, Python "
+        f"batches {d[2]}) {steps * batch / epoch_s:.1f} img/s ({steps} steps "
+        f"in {epoch_s:.2f} s, the first batch ready after {fill:.2f} s); the "
+        f"card waits on the host {starved:.1%} of the epoch, "
+        f"{after_fill:.1%} after the first batch ({card})")
+    del trainer
+    torch.cuda.empty_cache()
+    return wgrad_cuda.LAUNCHES
+
+
+def ingest_phase(torch, wgrad_cuda, nms_cuda, wpath, card):
+    """Phase 8: the augmented ingest and multi-scale training.  Returns the
+    kernels' launches, the wgrad kernel's per-step times at 320^2 and 608^2
+    and its largest bf16 error there."""
+    import os
+
+    from yolov4tpu_torch import native
+    workers = os.cpu_count() or 1
+    t = time.perf_counter()
+    native_build_phase(card)
+    folder = SCRATCH / "photos"
+    lines = write_photo_set(folder)
+    log(f"phase 8b: {len(lines)} images written "
+        f"({time.perf_counter() - t:.1f} s with 8a)")
+    t = time.perf_counter()
+    ingest_checks(native, folder, lines, 416, workers)
+    log(f"phase 8c: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ingest_rates(native, folder, lines, 416, workers, card)
+    log(f"phase 8d: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    wl, rl = multiscale_fit_phase(torch, wgrad_cuda, nms_cuda, wpath, folder,
+                                  lines, card, workers)
+    log(f"phase 8e: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    by_size, worst = wgrad_sizes_phase(torch, wgrad_cuda, card)
+    log(f"phase 8f: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    wl += starvation_phase(torch, wgrad_cuda, wpath, folder, lines, card,
+                           workers)
+    log(f"phase 8g: {time.perf_counter() - t:.1f} s")
+    return {"wgrad": wl, "suppress_rank": rl, "wgrad_by_size": by_size,
+            "wgrad_err": worst}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2130,13 +2637,18 @@ def main() -> int:
     del models
     torch.cuda.empty_cache()
     phase_done("7 (int8 and serving)")
+
+    # --- 8. augmented ingest and multi-scale training ---------------------
+    ingested = ingest_phase(torch, wgrad_cuda, nms_cuda, wpath, card)
+    phase_done("8 (augmented ingest and multi-scale training)")
     log(f"all phases: {time.perf_counter() - start:.1f} s")
 
     kernels = [{"name": "suppress_rank", "route": "cuda",
                 "source": "yolov4tpu_torch/csrc/suppress_rank.cu",
                 "replaces": "yolov4tpu/ops/nms_pallas.py:191",
                 "launches": (launches + persisted["suppress_rank"]
-                             + int8_launches + served["suppress_rank"]),
+                             + int8_launches + served["suppress_rank"]
+                             + ingested["suppress_rank"]),
                 "max_abs_err": worst,
                 "ms": k8["ms"], "device_ms": k8["device_ms"],
                 "plain_ms": k8["plain_ms"],
@@ -2155,8 +2667,9 @@ def main() -> int:
                {"name": "wgrad_3x3", "route": "cuda",
                 "source": "yolov4tpu_torch/csrc/wgrad_3x3.cu",
                 "replaces": "yolov4tpu/ops/wgrad_pallas.py:48",
-                "launches": wlaunches + persisted["wgrad"],
-                "max_abs_err": wgrad_err,
+                "launches": (wlaunches + persisted["wgrad"]
+                             + ingested["wgrad"]),
+                "max_abs_err": max(wgrad_err, ingested["wgrad_err"]),
                 "ms": wg["ms"], "plain_ms": wg["plain_ms"],
                 "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"],
                 "library_ms": wg["library_ms"],
@@ -2164,7 +2677,10 @@ def main() -> int:
                 # eager launches, host launch cost included, as earlier
                 # slices timed them.
                 "eager_ms": wg["eager_ms"],
-                "library_eager_ms": wg["library_eager_ms"]}]
+                "library_eager_ms": wg["library_eager_ms"],
+                # Device times per b8 bf16 step at the multi-scale range's
+                # ends (phase 8f); the keys above are at 416^2.
+                "per_step_by_side": ingested["wgrad_by_size"]}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

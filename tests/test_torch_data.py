@@ -2,8 +2,9 @@
 against the JAX package's ``DataGenerator(use_native=False)``: with the
 same seed the batches are equal bit for bit (the same cv2 decode and
 resize, the same per-sample seeds drawn in one sequential draw, the same
-host encoder).  Also: the unported options raise, ``prefetch`` yields the
-same batches, and the facade trains and serves on the CPU.
+host encoder).  Also: ``prefetch`` yields the same batches, and the facade
+trains and serves on the CPU.  The augmentations are in
+test_torch_data_aug.py, the native ingest in test_torch_native.py.
 """
 
 import cv2
@@ -54,7 +55,7 @@ def test_batches_equal_jax_bit_for_bit(dataset, tiny_classes, opts):
     jgen = JaxGenerator(lines, tiny_classes, str(folder), max_boxes=10,
                         config=JaxConfig(**kw), seed=3, use_native=False)
     tgen = DataGenerator(lines, tiny_classes, str(folder), max_boxes=10,
-                         config=YoloConfig(**kw), seed=3)
+                         config=YoloConfig(**kw), seed=3, use_native=False)
     assert len(tgen) == len(jgen) == 3
     for _ in range(2):                      # two epochs: the shuffle too
         for i in range(len(tgen)):
@@ -73,19 +74,6 @@ def test_batches_equal_jax_bit_for_bit(dataset, tiny_classes, opts):
     xj, yj = jgen[0]
     for g, w in zip(x, xj):
         np.testing.assert_array_equal(g, w)
-
-
-@pytest.mark.parametrize("kw", [
-    {"use_mosaic": True}, {"use_cutmix": True}, {"use_hflip": True},
-    {"use_color_jitter": True}, {"letterbox": True},
-    {"multi_scale": (32, 64)}])
-def test_unported_options_raise(dataset, tiny_classes, kw):
-    folder, lines = dataset
-    with pytest.raises(NotImplementedError, match="item 15"):
-        DataGenerator(lines, tiny_classes, str(folder),
-                      config=YoloConfig(img_size=(IMG, IMG, 3), **kw))
-    with pytest.raises(NotImplementedError, match="native"):
-        DataGenerator(lines, tiny_classes, str(folder), use_native=True)
 
 
 def test_prefetch_yields_the_generators_batches(dataset, tiny_classes):

@@ -34,7 +34,7 @@ def test_fit_history_matches_jax(tmp_path, tiny_classes):
     jt = jtrain.Trainer(JaxConfig(**kw), C, params, state)
     want = jt.fit(jgen, epochs=2, verbose=False)
     tgen = DataGenerator(lines, tiny_classes, str(tmp_path),
-                         config=YoloConfig(**kw), seed=0)
+                         config=YoloConfig(**kw), seed=0, use_native=False)
     tt = ttrain.Trainer(YoloConfig(**kw), C, *torch_params(C), device="cpu")
     got = tt.fit(tgen, epochs=2, verbose=False)
     assert [h["epoch"] for h in got] == [h["epoch"] for h in want] == [0, 1]

@@ -3,10 +3,10 @@
 Same fields and defaults as ``yolov4tpu.config.YoloConfig``, so one set of
 hyperparameters describes a model in either package.  The defaults
 reproduce the tf.keras reference's ``yolo_config`` (reference config.py).
-Fields whose feature has not been ported yet (training-time letterbox and
-augmentations, int8, the mesh) are kept so configurations move between the
-packages unchanged; the entry points that would read them raise
-``NotImplementedError`` (see ROADMAP.md).
+Fields whose feature has not been ported yet (the mesh: ``num_devices``)
+are kept so configurations move between the packages unchanged; the entry
+points that would read them raise ``NotImplementedError`` (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -54,8 +54,9 @@ class YoloConfig:
     pallas_wgrad: bool = False
 
     # Aspect-preserving letterbox resize instead of the reference's stretch
-    # resize, for inference and the mAP export (DataGenerator raises if it
-    # is set: training-time letterbox is not ported yet).
+    # resize, for inference, the mAP export and DataGenerator's training
+    # batches (gray 0.5 bars; colour jitter runs before the resize so the
+    # bars stay exactly 0.5).
     letterbox: bool = False
 
     # --- Host ingest ---

@@ -7,6 +7,10 @@ source, the sources it includes by ``#include "..."`` and the flags so an
 edit of any of them rebuilds it, and returns the library's path;
 the wrappers load it with ``ctypes``.  nvcc's ptxas report (registers, shared
 memory, spills) is kept beside the library in a ``.log`` file.
+
+``compile_to`` is the one compile step, shared with the host code that
+``yolov4tpu_torch.native`` builds with g++: each build writes a file of its
+own process and moves it into place, so concurrent first builds are safe.
 """
 
 from __future__ import annotations
@@ -38,10 +42,10 @@ def nvcc() -> str:
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
-def digest(src: Path) -> str:
+def digest(src: Path, flags=NVCC_FLAGS) -> str:
     """Hash of ``src``, of every file beside it that it includes by
     ``#include "..."`` (recursively, each once) and of the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags).encode())
     seen, todo = set(), [src.resolve()]
     while todo:
         path = todo.pop()
@@ -65,15 +69,27 @@ def build(name: str) -> Path:
     so = BUILD_DIR / f"{name}-{digest(src)}.so"
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    proc = compile_to(so, [nvcc(), *NVCC_FLAGS, str(src)])
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    os.replace(tmp, so)
     return so
+
+
+def compile_to(so: Path, cmd, timeout=None) -> subprocess.CompletedProcess:
+    """Run the compiler command ``cmd`` with ``-o`` a temporary file of this
+    process, keep its output in ``so``'s ``.log`` and, if it succeeded, move
+    the file to ``so`` (``os.replace``: a reader sees the whole library or
+    none).  Returns the finished process."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True,
+                          text=True, timeout=timeout)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode == 0:
+        os.replace(tmp, so)
+    else:
+        tmp.unlink(missing_ok=True)
+    return proc
 
 
 def ptxas_report(so: Path):
