@@ -115,7 +115,26 @@ exits non-zero without printing a result:
      bfloat16, and its per-step device time beside cuDNN's and the bound;
      (g) at b32, the train step fed by ``prefetch`` over the native
      augmented generator against the same step on a batch already on the
-     card, and the share of the epoch the card waits on the host.
+     card, and the share of the epoch the card waits on the host;
+  9. data-parallel training (``yolov4tpu_torch.parallel``) at full depth,
+     416^2, COCO-80, random darknet weights, bf16, ``pallas_wgrad=True``:
+     (a) NCCL at world size 1 in this process: a ``Trainer`` on
+     ``make_mesh(1)`` against a plain one over 2 b8 steps of phase 5's
+     JPEGs, bit-equal (cuDNN deterministic), one ``all_reduce`` and 37
+     tensor-core wgrad launches a step (counts zeroed just before, read
+     just after), ``make_train_step_twophase`` bit-equal to the fused step,
+     the b32 step's img/s with and without the mesh in turns and the slab's
+     MB and pack / all-reduce / unpack ms; (b) two gloo ranks sharing the
+     card (NCCL refuses two ranks on one device), each a process of this
+     script (``--dp-worker``): ``Yolov4(num_devices=2, batch_size=4).fit``
+     for one epoch over 15 JPEGs (b8, then a ragged 7: rank 1 holds 3 valid
+     rows and a pad) with a ragged 7-line validation set and
+     ``CheckpointCallback``, then ``predict_batch`` (one ``suppress_rank``
+     launch); per rank and step 37 tensor-core wgrad launches and one slab,
+     rank 0 alone writing, both ranks' params and BN state equal, and rank
+     0's checkpoint against the two steps emulated in this process
+     (bit-equal, else rel-RMS 1e-6 per leaf).  Then the process group is
+     destroyed.
 
 Each phase prints its seconds.  The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times (``device_ms`` from CUDA-graph
@@ -2436,6 +2455,423 @@ def ingest_phase(torch, wgrad_cuda, nms_cuda, wpath, card):
             "wgrad_err": worst}
 
 
+# ---------------------------------------------------------------------------
+# Data-parallel training: NCCL at world size 1, two gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+def dp_config(**kw):
+    """The data-parallel phase's model: full depth, 416^2, COCO-80, bf16,
+    ``pallas_wgrad=True``."""
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    return dataclasses.replace(DEFAULT_CONFIG, pallas_wgrad=True,
+                               compute_dtype="bfloat16", **kw)
+
+
+class CountedSlab:
+    """Wraps ``train._allreduce_slab`` (the one collective of a mesh step)
+    to count its calls and time each on the host clock, the card drained
+    before and after; ``close()`` puts the helper back."""
+
+    def __init__(self, torch, train):
+        self.torch, self.train = torch, train
+        self.real = train._allreduce_slab
+        self.calls, self.ms = 0, []
+        train._allreduce_slab = self
+
+    def __call__(self, *args):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.real(*args)
+        self.torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        self.calls += 1
+        return out
+
+    def close(self):
+        self.train._allreduce_slab = self.real
+
+
+def all_tensors(trainer):
+    """A trainer's params then BN state, as a list of tensors."""
+    from yolov4tpu_torch import train
+    return train.leaves(trainer.params) + train.leaves(trainer.state)
+
+
+def slab_split(torch, trainer, batch, repeats: int = 5):
+    """The slab of one mesh step on ``batch``: its MB and the median ms
+    (CUDA events) of its pack, all-reduce and unpack on this step's
+    gradients, BN state and metrics."""
+    import torch.distributed as dist
+
+    from yolov4tpu_torch import train
+    local = train._local_grads(80, trainer.config, masked=False)
+    *parts, w = local(trainer.params, trainer.state, trainer._place(batch))
+    tensors = [t for p in parts for t in train.leaves(p)]
+    times = []
+    for _ in range(repeats + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        flat = train._pack(tensors, w)
+        ev[1].record()
+        dist.all_reduce(flat, group=trainer.mesh.group)
+        ev[2].record()
+        train._unpack(flat, tensors)
+        ev[3].record()
+        torch.cuda.synchronize()
+        times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    split = [statistics.median(t[i] for t in times[1:]) for i in range(3)]
+    return flat.numel() * 4 / 1e6, split
+
+
+def nccl_phase(torch, wgrad_cuda, wpath, folder, lines, card, per_step):
+    """Phase 9a, NCCL at world size 1 in this process: a mesh ``Trainer``
+    against a plain one from the same weights over 2 b8 steps (bit-equal,
+    cuDNN deterministic; one rank's all-reduce is a copy and x * 8 / 8 is
+    exact), one all-reduce and 37 tensor-core wgrad launches a step, the
+    two-phase step bit-equal to the fused one, then the b32 step's img/s
+    with and without the mesh in turns and the slab's split.  Returns the
+    wgrad launches of the mesh run and the rates."""
+    import torch.distributed as dist
+
+    from yolov4tpu_torch import train, weights
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+    from yolov4tpu_torch.parallel import init_distributed, make_mesh
+
+    info = init_distributed(num_processes=1, process_id=0)
+    check(info["backend"] == "nccl" and info["num_processes"] == 1,
+          f"init_distributed: {info}")
+    mesh = make_mesh(1)
+    check(mesh.device.type == "cuda", f"the mesh is on {mesh.device}")
+    cfg = dp_config()
+    p0, s0 = weights.load_darknet_weights(str(wpath), 80)
+    gen = DataGenerator(lines, str(CLASSES), str(folder), config=cfg, seed=0)
+    batches = [gen.get_batch(i) for i in range(2)]
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    plain = train.Trainer(cfg, 80, p0, s0)
+    for b in batches:
+        plain.train_step(b)
+    meshed = train.Trainer(cfg, 80, p0, s0, mesh=mesh)
+    slab = CountedSlab(torch, train)
+    collectives = []
+    real_all_reduce = dist.all_reduce
+
+    def counted_all_reduce(*a, **k):
+        collectives.append(1)
+        return real_all_reduce(*a, **k)
+
+    dist.all_reduce = counted_all_reduce
+    try:
+        wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+        for b in batches:
+            meshed.train_step(b)
+        torch.cuda.synchronize()
+        launches, tc = wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES
+    finally:
+        dist.all_reduce = real_all_reduce
+        slab.close()
+    steps = len(batches)
+    check(slab.calls == steps and len(collectives) == steps,
+          f"{slab.calls} slabs and {len(collectives)} all_reduce calls in "
+          f"{steps} mesh steps")
+    check(launches == per_step * steps and tc == launches,
+          f"wgrad launched {launches} times ({tc} on the tensor cores) in "
+          f"{steps} mesh steps, not {per_step} a step")
+    diff = first_difference(torch, all_tensors(meshed), all_tensors(plain))
+    check(diff is None, f"mesh trainer != plain trainer after {steps} "
+          f"steps: {diff}")
+    log(f"9a NCCL world size 1: mesh Trainer == plain Trainer bit for bit "
+        f"after {steps} b8 steps ({len(all_tensors(plain))} tensors); "
+        f"all_reduce {len(collectives)} in {steps} steps; wgrad {launches} "
+        f"launches, {tc} on the tensor cores")
+    del plain, meshed
+
+    fused = train.Trainer(cfg, 80, p0, s0, mesh=mesh)
+    fused.train_step(batches[0])
+    two = train.Trainer(cfg, 80, p0, s0, mesh=mesh)
+    step = train.make_train_step_twophase(80, cfg, two.optimizer, mesh)
+    two.state, _ = step(two.params, two.state, two._place(batches[0]))
+    diff = first_difference(torch, all_tensors(two), all_tensors(fused))
+    check(diff is None, f"twophase != fused after one step: {diff}")
+    log("9a make_train_step_twophase == the fused mesh step bit for bit "
+        "after one b8 step")
+    del fused, two
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    b32 = train.tree_map(lambda *xs: np.concatenate(xs), *(
+        DataGenerator(lines, str(CLASSES), str(folder), config=cfg,
+                      seed=9).get_batch(i) for i in (0, 1, 0, 1)))
+    rates = {}
+    for on_mesh in (True, False, False, True):
+        trainer = train.Trainer(dp_config(batch_size=32), 80, p0, s0,
+                                mesh=mesh if on_mesh else None)
+        dev = trainer._place(train.tree_map(torch.as_tensor, b32))
+        for _ in range(2):
+            trainer.train_step(dev)
+        torch.cuda.synchronize()
+        iters = 5
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            trainer.train_step(dev)
+        torch.cuda.synchronize()
+        rate = iters * 32 / (time.perf_counter() - t0)
+        rates.setdefault(on_mesh, []).append(rate)
+        if on_mesh and len(rates[True]) == 1:
+            mb, split = slab_split(torch, trainer, b32)
+        del trainer, dev
+        torch.cuda.empty_cache()
+    log(f"9a b32 bf16 train step, in turns (mesh, plain, plain, mesh): "
+        f"{rates[True][0]:.1f}, {rates[False][0]:.1f}, {rates[False][1]:.1f},"
+        f" {rates[True][1]:.1f} img/s ({card})")
+    log(f"9a the b32 slab: {mb:.1f} MB; pack {split[0]:.3f} ms, NCCL "
+        f"all_reduce {split[1]:.3f} ms, unpack {split[2]:.3f} ms (CUDA "
+        f"events, median of 5; {card})")
+    return launches, {"mesh_img_s": rates[True], "plain_img_s":
+                      rates[False], "slab_mb": mb, "slab_ms": split}
+
+
+def dp_worker(rank: int, work: pathlib.Path) -> int:
+    """One rank of phase 9b (``python3 chip_smoke.py --dp-worker RANK
+    DIR``): joins a gloo group of two ranks on the card through a FileStore
+    in DIR, trains ``Yolov4(num_devices=2, batch_size=4).fit`` for one epoch
+    over 15 of phase 5's JPEGs (b8, then a ragged 7) with a 7-line ragged
+    validation set and ``CheckpointCallback``, runs ``predict_batch`` on one
+    b8 scene, and writes DIR/rank<R>.json: per step the wgrad launches (all
+    and tensor-core), the slabs and the seconds, the slabs' ms, the
+    ``suppress_rank`` launches of the predict, and a digest of the final
+    params and BN state."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from yolov4tpu_torch import train
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.callbacks import CheckpointCallback
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+    from yolov4tpu_torch.ops import nms_cuda, wgrad_cuda
+    from yolov4tpu_torch.parallel import init_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    info = init_distributed(f"file://{work / 'store'}", 2, rank,
+                            backend="gloo")
+    folder = SCRATCH / "train"
+    lines = (folder / "annotations.txt").read_text().splitlines()
+    cfg = dp_config(num_devices=2, batch_size=4)
+    model = Yolov4(weight_path=str(SCRATCH / "random80.weights"),
+                   class_name_path=str(CLASSES), config=cfg)
+    trainer = model.trainer()
+    slab = CountedSlab(torch, train)
+    steps = []
+    real_step = trainer.train_step
+
+    def counted_step(batch):
+        before = (wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES, slab.calls)
+        t0 = time.perf_counter()
+        metrics = real_step(batch)
+        torch.cuda.synchronize()
+        steps.append({"wgrad": wgrad_cuda.LAUNCHES - before[0],
+                      "tc": wgrad_cuda.TC_LAUNCHES - before[1],
+                      "slabs": slab.calls - before[2],
+                      "s": time.perf_counter() - t0})
+        return metrics
+
+    trainer.train_step = counted_step
+    gen = DataGenerator(lines[:15], str(CLASSES), str(folder), config=cfg,
+                        seed=0)
+    val = DataGenerator(lines[9:16], str(CLASSES), str(folder), config=cfg,
+                        seed=1, shuffle=False)
+    ck = CheckpointCallback(str(work / f"ck_r{rank}_{{epoch}}.npz"))
+    history = model.fit(gen, epochs=1, val_data_gen=val, callbacks=[ck],
+                        verbose=False)
+    slab.close()
+    nms_cuda.LAUNCHES = 0
+    out = model.predict_batch(scene(3, 8))
+    torch.cuda.synchronize()
+    predict_launches = nms_cuda.LAUNCHES
+    digest = hashlib.sha256()
+    for t in all_tensors(trainer):
+        digest.update(t.detach().cpu().numpy().tobytes())
+    (work / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "info": info, "steps": steps, "slab_ms": slab.ms,
+        "history": history, "predict_launches": predict_launches,
+        "valid": out[3].tolist(), "digest": digest.hexdigest(),
+        "masked_step": trainer._step_masked is not None,
+        "masked_eval": trainer._eval_masked is not None,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_emulation(torch, wpath, folder, lines, device="cuda"):
+    """Phase 9b's two steps emulated in this process on the card: the same
+    seeded batches, each rank's rows (the ragged 7 padded to 8 with a mask)
+    through the gradient core, combined as the slab does (each rank's
+    float32 vector times its valid count, the two summed, divided by the
+    summed count), one Adam step each.  Returns (params, state)."""
+    from yolov4tpu_torch import train, weights
+    from yolov4tpu_torch.data.pipeline import DataGenerator
+
+    cfg = dp_config(num_devices=2, batch_size=4)
+    gen = DataGenerator(lines[:15], str(CLASSES), str(folder), config=cfg,
+                        seed=0)
+    p0, s0 = weights.load_darknet_weights(str(wpath), 80)
+
+    def place(t):
+        return torch.as_tensor(t).to(device, torch.float32, copy=True)
+
+    params, state = train.tree_map(place, p0), train.tree_map(place, s0)
+    opt = train.make_optimizer(cfg, train.leaves(params))
+    core = train._make_grad_and_metrics(80, cfg)
+    for i in range(len(gen)):
+        batch = train.tree_map(torch.as_tensor, gen.get_batch(i))
+        n = train._batch_size(batch)
+        if n % 2:
+            batch = train.pad_mask_batch(batch, n + 1)
+        half = train._batch_size(batch) // 2
+        flats = []
+        for r in range(2):
+            shard = train.tree_map(
+                lambda x: x[r * half:(r + 1) * half].to(device), batch)
+            trees = core(params, state, shard)
+            w = (float(shard["mask"].sum()) if "mask" in shard
+                 else float(half))
+            flats.append(torch.cat(
+                [t.reshape(-1) for p in trees for t in train.leaves(p)]
+                + [torch.ones(1, device=device)]) * w)
+        total = flats[0] + flats[1]
+        flat = total[:-1] / torch.clamp(total[-1], min=1.0)
+        offset, combined = 0, []
+        for p in trees:
+            parts = []
+            for t in train.leaves(p):
+                parts.append(flat[offset:offset + t.numel()].view(t.shape))
+                offset += t.numel()
+            combined.append(train.unflatten(p, parts))
+        grads, state, _ = combined
+        opt.step(train.leaves(grads))
+    gen.close()
+    return params, state
+
+
+def gloo_phase(torch, wpath, folder, lines, card, per_step):
+    """Phase 9b: two gloo ranks sharing the card, each a worker process
+    (``dp_worker``), then their checks and rank 0's checkpoint against
+    ``dp_emulation``.  Returns the workers' wgrad and suppress_rank
+    launches and times."""
+    import shutil
+
+    from yolov4tpu_torch import checkpoint as ckpt
+    from yolov4tpu_torch import train
+
+    work = SCRATCH / "dp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker", str(r),
+         str(work)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"data-parallel rank {r} failed "
+              f"(exit {p.returncode}):\n{text[-4000:]}")
+    workers_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    check((work / "ck_r0_0.npz").exists()
+          and not (work / "ck_r1_0.npz").exists(),
+          f"checkpoint files {sorted(p.name for p in work.glob('ck_*'))}: "
+          "rank 0 alone must write")
+    for rk in ranks:
+        r = rk["rank"]
+        check(rk["info"]["backend"] == "gloo"
+              and rk["info"]["num_processes"] == 2, f"rank {r}: {rk['info']}")
+        check(len(rk["steps"]) == 2, f"rank {r} ran {len(rk['steps'])} "
+              "steps, not 2 (b8, then the ragged 7)")
+        for s in rk["steps"]:
+            check(s["wgrad"] == per_step and s["tc"] == s["wgrad"]
+                  and s["slabs"] == 1, f"rank {r} step {s}: not "
+                  f"{per_step} tensor-core wgrad launches and one slab")
+        check(rk["masked_step"] and rk["masked_eval"], f"rank {r}: the "
+              "ragged tail's masked step or the masked eval did not run")
+        check(rk["predict_launches"] == 1, f"rank {r}: predict_batch "
+              f"launched suppress_rank {rk['predict_launches']} times")
+        check(np.isfinite(rk["history"][0]["loss"])
+              and np.isfinite(rk["history"][0]["val_loss"]),
+              f"rank {r}: {rk['history']}")
+    check(ranks[0]["digest"] == ranks[1]["digest"],
+          "the two ranks' params and BN state differ after fit")
+    for rk in ranks:
+        step_ms = ", ".join(f"{1e3 * s['s']:.1f}" for s in rk["steps"])
+        slab_ms = ", ".join(f"{m:.1f}" for m in rk["slab_ms"])
+        log(f"9b gloo rank {rk['rank']}: steps {step_ms} ms (b4 a rank; "
+            f"the first pays cuDNN's set-up), slab all_reduce {slab_ms} ms "
+            f"(the steps', then the eval's), wgrad "
+            f"{sum(s['wgrad'] for s in rk['steps'])} launches, all on the "
+            f"tensor cores; predict_batch valid {rk['valid']}; peak "
+            f"{rk['peak_gib']:.1f} GiB ({card})")
+    log(f"9b two gloo ranks on one card: params and BN state equal (sha256 "
+        f"{ranks[0]['digest'][:16]}), loss "
+        f"{ranks[0]['history'][0]['loss']:.3f}, val_loss "
+        f"{ranks[0]['history'][0]['val_loss']:.3f}; rank 0 alone wrote its "
+        f"checkpoint; workers {workers_s:.1f} s")
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    params, state = dp_emulation(torch, wpath, folder, lines)
+    torch.backends.cudnn.deterministic = False
+    got_p, got_s, _, _ = ckpt.load_npz(str(work / "ck_r0_0.npz"))
+    want = train.leaves(params) + train.leaves(state)
+    got = train.leaves(got_p) + train.leaves(got_s)
+    check(len(got) == len(want), f"{len(got)} tensors in the checkpoint, "
+          f"{len(want)} in the emulation")
+    diff = first_difference(torch, [t.cuda() for t in got], want)
+    if diff is None:
+        log(f"9b rank 0's checkpoint == the emulation bit for bit "
+            f"({len(want)} tensors)")
+    else:
+        worst = max(rel_rms(g, w.cpu()) for g, w in zip(got, want))
+        check(worst <= 1e-6, f"rank 0's checkpoint vs the emulation: rel-RMS "
+              f"{worst:.3g} (limit 1e-6), first difference {diff}")
+        log(f"9b rank 0's checkpoint vs the emulation: not bit-equal (first "
+            f"difference {diff}), worst leaf rel-RMS {worst:.3g} <= 1e-6")
+    return {"wgrad": sum(s["wgrad"] for rk in ranks for s in rk["steps"]),
+            "suppress_rank": sum(rk["predict_launches"] for rk in ranks),
+            "step_ms": [[1e3 * s["s"] for s in rk["steps"]] for rk in ranks],
+            "slab_ms": [rk["slab_ms"] for rk in ranks]}
+
+
+def dp_phase(torch, wgrad_cuda, wpath, folder, lines, card, per_step):
+    """Phase 9: data-parallel training (9a NCCL at world size 1, 9b two
+    gloo ranks on one card), then this process's group destroyed."""
+    import torch.distributed as dist
+    t = time.perf_counter()
+    wl, rates = nccl_phase(torch, wgrad_cuda, wpath, folder, lines, card,
+                           per_step)
+    log(f"phase 9a: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    gl = gloo_phase(torch, wpath, folder, lines, card, per_step)
+    log(f"phase 9b: {time.perf_counter() - t:.1f} s")
+    dist.destroy_process_group()
+    return {"wgrad": wl + gl["wgrad"], "suppress_rank": gl["suppress_rank"],
+            **rates, "gloo_step_ms": gl["step_ms"],
+            "gloo_slab_ms": gl["slab_ms"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2641,6 +3077,12 @@ def main() -> int:
     # --- 8. augmented ingest and multi-scale training ---------------------
     ingested = ingest_phase(torch, wgrad_cuda, nms_cuda, wpath, card)
     phase_done("8 (augmented ingest and multi-scale training)")
+
+    # --- 9. data-parallel training -----------------------------------------
+    torch.cuda.empty_cache()
+    parallel = dp_phase(torch, wgrad_cuda, wpath, folder, lines, card,
+                        sum(shapes.values()))
+    phase_done("9 (data-parallel training)")
     log(f"all phases: {time.perf_counter() - start:.1f} s")
 
     kernels = [{"name": "suppress_rank", "route": "cuda",
@@ -2648,7 +3090,8 @@ def main() -> int:
                 "replaces": "yolov4tpu/ops/nms_pallas.py:191",
                 "launches": (launches + persisted["suppress_rank"]
                              + int8_launches + served["suppress_rank"]
-                             + ingested["suppress_rank"]),
+                             + ingested["suppress_rank"]
+                             + parallel["suppress_rank"]),
                 "max_abs_err": worst,
                 "ms": k8["ms"], "device_ms": k8["device_ms"],
                 "plain_ms": k8["plain_ms"],
@@ -2668,7 +3111,7 @@ def main() -> int:
                 "source": "yolov4tpu_torch/csrc/wgrad_3x3.cu",
                 "replaces": "yolov4tpu/ops/wgrad_pallas.py:48",
                 "launches": (wlaunches + persisted["wgrad"]
-                             + ingested["wgrad"]),
+                             + ingested["wgrad"] + parallel["wgrad"]),
                 "max_abs_err": max(wgrad_err, ingested["wgrad_err"]),
                 "ms": wg["ms"], "plain_ms": wg["plain_ms"],
                 "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"],
@@ -2689,4 +3132,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(int(sys.argv[2]), pathlib.Path(sys.argv[3])))
     sys.exit(main())

@@ -229,3 +229,132 @@ def adam_step_agreement(before, after_jax, after_torch, lr: float):
         total += d.size
         worst = max(worst, float(d.max()) / lr)
     return agree / total, worst
+
+
+class DPWorkers:
+    """Two ranks of ``tests/_torch_dp_worker.py``, started at construction
+    in their own processes (gloo on the CPU, rendezvous through a FileStore
+    in ``work``), so the caller can compute while they run; ``results()``
+    waits for both (each with a timeout) and returns their outputs, rank 0
+    first.  ``spec``: {"num_classes", "scenarios": [...]}; ``params``,
+    ``state``: the port's CPU tensors (``torch_params``); ``batches``:
+    name -> a global batch of numpy arrays."""
+
+    def __init__(self, work, spec, params, state, batches, world: int = 2,
+                 timeout: float = 120.0):
+        import json
+        import os
+        import pathlib
+        import subprocess
+        import sys
+
+        self.work = pathlib.Path(work)
+        self.timeout = timeout
+        (self.work / "spec.json").write_text(json.dumps(spec))
+        torch.save({"params": params, "state": state},
+                   self.work / "params.pt")
+        flat = {}
+        for name, b in batches.items():
+            flat[f"{name}/image"] = b["image"]
+            flat[f"{name}/boxes"] = b["boxes"]
+            for i, g in enumerate(b["labels"]):
+                flat[f"{name}/labels/{i}"] = g
+            if "mask" in b:
+                flat[f"{name}/mask"] = b["mask"]
+        np.savez(self.work / "inputs.npz", **flat)
+        here = pathlib.Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(here.parent),
+                   OMP_NUM_THREADS="1")
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(here / "_torch_dp_worker.py"), str(r),
+             str(world), str(self.work)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env) for r in range(world)]
+
+    def results(self):
+        import subprocess
+        outs = []
+        try:
+            for p in self.procs:
+                log, _ = p.communicate(timeout=self.timeout)
+                assert p.returncode == 0, log[-3000:]
+        except subprocess.TimeoutExpired:
+            for p in self.procs:
+                p.kill()
+                p.communicate()
+            raise AssertionError("a data-parallel worker timed out")
+        for r in range(len(self.procs)):
+            with np.load(self.work / f"out_{r}.npz") as f:
+                outs.append(dict(f))
+        return outs
+
+
+def dp_leaves(out, name, kind):
+    """A scenario's recorded leaves ("params" or "state") from a worker's
+    output, in ``leaves`` order."""
+    n = sum(1 for k in out if k.startswith(f"{name}/{kind}/"))
+    return [out[f"{name}/{kind}/{i}"] for i in range(n)]
+
+
+def slab_mean(per_rank, weights):
+    """The data-parallel combination written out: each rank's tensors
+    flattened into one float32 vector with a 1 appended, times the rank's
+    weight, summed over the ranks in order, divided by the summed weight
+    (at least 1); returned as tensors shaped like rank 0's."""
+    flats = [torch.cat([t.reshape(-1) for t in ts] + [torch.ones(1)])
+             * torch.tensor(float(w)) for ts, w in zip(per_rank, weights)]
+    total = flats[0]
+    for f in flats[1:]:
+        total = total + f
+    mean = total[:-1] / torch.clamp(total[-1], min=1.0)
+    out, offset = [], 0
+    for t in per_rank[0]:
+        out.append(mean[offset:offset + t.numel()].view(t.shape))
+        offset += t.numel()
+    return out
+
+
+def dp_emulation(core, params, state, shards, weights, make_optimizer):
+    """One data-parallel step emulated in this process: ``core`` (the
+    port's gradient core) on each rank's shard from the same (params,
+    state), the gradients, BN states and metrics combined by
+    ``slab_mean``, then one step of ``make_optimizer(tensors)`` over a
+    copy of ``params``.  Returns (params, state, metrics)."""
+    from yolov4tpu_torch import train as ttrain
+    per_rank, trees = [], None
+    for shard in shards:
+        g, st, m = core(params, state, shard)
+        trees = (g, st, m)
+        per_rank.append([t for p in (g, st, m) for t in ttrain.leaves(p)])
+    means = iter(slab_mean(per_rank, weights))
+    g, st, m = (ttrain.unflatten(p, means) for p in trees)
+    new = ttrain.tree_map(lambda t: t.clone(), params)
+    make_optimizer(ttrain.leaves(new)).step(ttrain.leaves(g))
+    return new, st, m
+
+
+def background(fn, *args):
+    """Start ``fn(*args)`` in a thread (torch's kernels release the GIL, so
+    it overlaps a JAX compile); returns a function that joins the thread
+    and returns fn's result or raises its exception."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 — raised in the caller
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def result():
+        t.join(timeout=300)
+        if t.is_alive():
+            raise AssertionError(f"{fn.__name__} did not finish in 300 s")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return result

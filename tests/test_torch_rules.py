@@ -36,7 +36,8 @@ def test_port_imports_nothing_of_jax():
             "yolov4tpu_torch.tools.measure, "
             "yolov4tpu_torch.tools.wgrad_probe, yolov4tpu_torch.checkpoint, "
             "yolov4tpu_torch.callbacks, yolov4tpu_torch.models.quantize, "
-            "yolov4tpu_torch.serving, yolov4tpu_torch.native\n"
+            "yolov4tpu_torch.serving, yolov4tpu_torch.native, "
+            "yolov4tpu_torch.parallel, yolov4tpu_torch.parallel.mesh\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'yolov4tpu' or "
             "m.startswith('yolov4tpu.'))\n"

@@ -182,6 +182,3 @@ def test_trainer_lr_and_ragged_eval():
     per = [float(trainer.eval_step(jax.tree.map(lambda x: x[i:i + 1], batch)))
            for i in range(3)]
     assert ragged == pytest.approx(np.mean(per), rel=1e-5)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttrain.Trainer(YoloConfig(**KW, num_devices=2), C, tp, ts,
-                       device="cpu")

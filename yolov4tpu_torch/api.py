@@ -427,7 +427,9 @@ class Yolov4:
     # ------------------------------------------------------------------
     def trainer(self, schedule=None):
         """The facade's Trainer (created on first use), holding its params
-        on the facade's device."""
+        on the facade's device; with ``config.num_devices > 1`` a
+        data-parallel one over the process group (``parallel.mesh``:
+        ``init_distributed`` first)."""
         if self._trainer is None:
             self._trainer = Trainer(self.config, self.num_classes,
                                     self.params, self.state,

@@ -2,13 +2,17 @@
 
 Counterpart of ``yolov4tpu.callbacks``: the epoch-wise cosine LR
 callback, the in-training mAP evaluation and the checkpoint callback, for
-``Trainer.fit`` (or a hand-rolled loop that calls them).
+``Trainer.fit`` (or a hand-rolled loop that calls them).  Under
+data-parallel training the two that write files do so on rank 0 only, and
+every rank calls them: the others wait for rank 0 (``parallel.on_rank0``).
 """
 
 from __future__ import annotations
 
 import math
 import os
+
+from .parallel.mesh import on_rank0
 
 
 class CosineAnnealingScheduler:
@@ -70,7 +74,9 @@ class EvalMapCallback:
 
     ``model`` is the owning :class:`yolov4tpu_torch.api.Yolov4`; its
     inference weights are synced from the trainer that drives the loop
-    before each evaluation.
+    before each evaluation.  On a mesh only rank 0 evaluates (and keeps
+    ``history``); the other ranks wait for it without the process group's
+    collective timeout, however long the evaluation takes.
     """
 
     def __init__(self, model, annotation_path: str, img_folder_path: str,
@@ -85,8 +91,11 @@ class EvalMapCallback:
 
     def __call__(self, trainer, entry: dict):
         epoch = entry["epoch"]
-        if (epoch + 1) % self.every:
-            return
+        if (epoch + 1) % self.every == 0:
+            on_rank0(getattr(trainer, "mesh", None),
+                     lambda: self._evaluate(trainer, epoch))
+
+    def _evaluate(self, trainer, epoch: int):
         # The trainer driving this loop may be a hand-built one the facade
         # never saw.
         self.model.sync_from_trainer(trainer)
@@ -109,7 +118,7 @@ class EvalMapCallback:
 
 class CheckpointCallback:
     """Save an .npz checkpoint of (params, BN state) every N epochs, in the
-    JAX package's layout (``checkpoint.save_npz``)."""
+    JAX package's layout (``checkpoint.save_npz``); on a mesh, rank 0's."""
 
     def __init__(self, path_fmt: str, every: int = 1):
         self.path_fmt = path_fmt
@@ -118,8 +127,12 @@ class CheckpointCallback:
     def __call__(self, trainer, entry: dict):
         epoch = entry["epoch"]
         if (epoch + 1) % self.every == 0:
-            from . import checkpoint as ckpt
-            from .models.network import params_to_jax
-            params, state = params_to_jax(trainer.params, trainer.state)
-            ckpt.save_npz(self.path_fmt.format(epoch=epoch), params, state,
-                          step=trainer.global_step, extra={"epoch": epoch})
+            on_rank0(getattr(trainer, "mesh", None),
+                     lambda: self._save(trainer, epoch))
+
+    def _save(self, trainer, epoch: int):
+        from . import checkpoint as ckpt
+        from .models.network import params_to_jax
+        params, state = params_to_jax(trainer.params, trainer.state)
+        ckpt.save_npz(self.path_fmt.format(epoch=epoch), params, state,
+                      step=trainer.global_step, extra={"epoch": epoch})

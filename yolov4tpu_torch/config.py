@@ -3,10 +3,8 @@
 Same fields and defaults as ``yolov4tpu.config.YoloConfig``, so one set of
 hyperparameters describes a model in either package.  The defaults
 reproduce the tf.keras reference's ``yolo_config`` (reference config.py).
-Fields whose feature has not been ported yet (the mesh: ``num_devices``)
-are kept so configurations move between the packages unchanged; the entry
-points that would read them raise ``NotImplementedError`` (see
-ROADMAP.md).
+``num_devices > 1`` trains data-parallel over a ``torch.distributed``
+process group of that size (``parallel.mesh``).
 """
 
 from __future__ import annotations

@@ -1,12 +1,19 @@
-"""Training on one device: Adam and the train step.
+"""Training: Adam, the train step, data-parallel steps and ``Trainer``.
 
-Counterpart of ``yolov4tpu.train`` without the mesh.  The JAX package's
-step is a pure function of (params, state, opt_state, batch); here the
-parameters are float32 tensors on the device that the optimizer updates in
-place (no second copy of the 64 M parameters), and the step returns the
-new BN state and the metrics.  Parameters, state and batches are the same
-nested dictionaries and lists as in the JAX package (``models.network``),
-with OIHW kernels.
+Counterpart of ``yolov4tpu.train``.  The JAX package's step is a pure
+function of (params, state, opt_state, batch); here the parameters are
+float32 tensors on the device that the optimizer updates in place (no
+second copy of the 64 M parameters), and the step returns the new BN state
+and the metrics.  Parameters, state and batches are the same nested
+dictionaries and lists as in the JAX package (``models.network``), with
+OIHW kernels.
+
+Data-parallel training (``parallel.mesh``) runs one process per rank.
+Each rank's step computes gradients with BatchNorm statistics local to its
+shard (no SyncBN, as under MirroredStrategy and the JAX package's
+shard_map), then ONE all-reduce of one float32 slab (``_allreduce_slab``)
+combines the gradients, the new BN state and the metrics, weighted by each
+rank's valid-sample count, and every rank applies the same update.
 
 Also: the cosine-annealing LR schedule of the reference's
 CosineAnnealingScheduler (reference custom_callbacks.py:5-15), gradient
@@ -14,26 +21,25 @@ accumulation, pad-and-mask and chunked steps for ragged batches, the epoch
 loop ``Trainer.fit``, and checkpoints in the JAX Trainer's file layout
 (``Trainer.save_checkpoint``/``restore_checkpoint``, ``fit(resume_dir=)``):
 the optimizer's state is written as optax's leaves (``optimizer_leaves``),
-so a checkpoint of either package resumes in the other.  Data-parallel
-training (ROADMAP.md queue A item 12) raises ``NotImplementedError``.
+so a checkpoint of either package resumes in the other.
 """
 
 from __future__ import annotations
 
 import math
 import time
+import zlib
 from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import YoloConfig
 from .device import resolve_device, to_device_async
 from .losses import yolo_loss
 from .models import network
-
-_MESH = ("is not ported yet: data-parallel training waits for ROADMAP.md "
-         "queue A item 12")
+from .parallel.mesh import make_mesh, on_rank0, replicate, shard_batch
 
 
 # ---------------------------------------------------------------------------
@@ -551,39 +557,151 @@ def pad_mask_batch(batch: dict, target: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Data-parallel combination: one all-reduce of one slab
+# ---------------------------------------------------------------------------
+
+def _pack(tensors, w):
+    """One float32 buffer: every tensor flattened and multiplied by the
+    rank's weight ``w`` (a 0-d float32 tensor), then ``w`` itself."""
+    one = torch.ones(1, dtype=torch.float32, device=w.device)
+    return torch.cat([t.reshape(-1) for t in tensors] + [one]).mul_(w)
+
+
+def _unpack(flat, tensors):
+    """The summed buffer divided by the summed weight (at least 1, as the
+    JAX package clamps it), as tensors shaped like ``tensors``."""
+    mean = flat[:-1] / torch.clamp(flat[-1], min=1.0)
+    parts = mean.split([t.numel() for t in tensors])
+    return [p.view(t.shape) for p, t in zip(parts, tensors)]
+
+
+def _allreduce_slab(mesh, tensors, w):
+    """The ``w``-weighted mean of ``tensors`` over the mesh's ranks in ONE
+    collective: pack every tensor × w and w into one float32 buffer, one
+    ``all_reduce(SUM)``, divide by the summed w.  With w the rank's valid
+    count this is the valid-count-weighted mean of the JAX mesh step
+    (train.py:438-465 there); with equal counts, the plain mean.  The JAX
+    package's compiled step holds 1-12 all-reduces after XLA's combiner;
+    this one holds one, masked or not."""
+    flat = _pack(tensors, w)
+    dist.all_reduce(flat, group=mesh.group)
+    return _unpack(flat, tensors)
+
+
+def _combine(mesh, grads, new_state, metrics, w):
+    """(grads, new BN state, metrics) weighted by ``w`` and averaged over
+    the mesh through one ``_allreduce_slab``."""
+    parts = (grads, new_state, metrics)
+    means = iter(_allreduce_slab(mesh, [t for p in parts for t in leaves(p)],
+                                 w))
+    return tuple(unflatten(p, means) for p in parts)
+
+
+def _rank_weight(batch, masked: bool, accum: int) -> torch.Tensor:
+    """This rank's weight in the combination: its valid-sample count (the
+    mask's sum) when ``masked``, else its sample count."""
+    image = batch["image"]
+    if masked:
+        return batch["mask"].sum(dtype=torch.float32)
+    if "mask" in batch:
+        raise ValueError("a batch with a validity mask needs the masked "
+                         "step (masked=True)")
+    count = image.shape[0] * (image.shape[1] if accum > 1 else 1)
+    # A fill on the device: a host-to-device copy would wait for the work
+    # queued before it.
+    return torch.full((), float(count), device=image.device)
+
+
+def _local_grads(num_classes: int, config: YoloConfig, masked: bool):
+    """(params, state, batch) -> (grads, new_state, metrics, w) on this
+    rank's shard, with no collective: the gradient core (accumulated over
+    micro-batches when ``config.grad_accum_steps > 1``; the micro-steps stay
+    local and an all-padding micro-batch leaves this rank's BN statistics
+    as they were) and the rank's weight."""
+    accum = config.grad_accum_steps
+    core = _accumulated(_make_grad_and_metrics(num_classes, config), accum)
+
+    def local(params, state, batch):
+        w = _rank_weight(batch, masked, accum)
+        return (*core(params, state, batch), w)
+
+    return local
+
+
 def make_train_step(num_classes: int, config: YoloConfig, optimizer,
-                    mesh=None):
+                    mesh=None, masked: bool = False):
     """The train step: (params, state, batch) -> (new_state, metrics), with
     ``optimizer`` (built over ``params``' tensors) updating the parameters
     in place.  batch is {'image': (B,H,W,3), 'labels': [3 grids],
     'boxes': (B,M,4)} of tensors on the parameters' device (or
     {'image', 'raw_boxes'} with ``encode_on_device``).  With
     ``config.grad_accum_steps > 1`` the batch must be pre-chunked by
-    ``chunk_batch``."""
-    if mesh is not None:
-        raise NotImplementedError(f"make_train_step(mesh=...) {_MESH}")
-    grad_and_metrics = _accumulated(
-        _make_grad_and_metrics(num_classes, config), config.grad_accum_steps)
+    ``chunk_batch``.
+
+    On a ``mesh`` the batch is this rank's shard: local gradients (BN
+    statistics over the shard), then one ``_allreduce_slab`` of the
+    gradients, the new BN state and the metrics, then the optimizer.  Every
+    rank applies the same update, so the parameters stay replicated.
+    ``masked`` (mesh only): the shard carries a (B,) 0/1 "mask" and each
+    rank weighs by its valid count, so the update is the mean over every
+    valid sample of the global batch however the padding falls; a rank
+    that holds only padding contributes nothing."""
+    if mesh is None:
+        grad_and_metrics = _accumulated(
+            _make_grad_and_metrics(num_classes, config),
+            config.grad_accum_steps)
+
+        def step(params, state, batch):
+            grads, new_state, metrics = grad_and_metrics(params, state, batch)
+            optimizer.step(leaves(grads))
+            return new_state, metrics
+
+        return step
+
+    local = _local_grads(num_classes, config, masked)
+
+    def mesh_step(params, state, batch):
+        grads, new_state, metrics = _combine(mesh, *local(params, state,
+                                                          batch))
+        optimizer.step(leaves(grads))
+        return new_state, metrics
+
+    return mesh_step
+
+
+def make_train_step_twophase(num_classes: int, config: YoloConfig,
+                             optimizer, mesh):
+    """The mesh train step in two phases: (1) local gradients with no
+    collective, then a device synchronize and a ``barrier``, so every rank
+    reaches (2), the slab's all-reduce and the update, together.  The same
+    arithmetic as ``make_train_step(mesh=...)``, so the same result bit for
+    bit.  No gradient accumulation (as in the JAX package)."""
+    if config.grad_accum_steps > 1:
+        raise ValueError(
+            "make_train_step_twophase does not support grad_accum_steps>1 — "
+            "use make_train_step(mesh=...), which does")
+    local = _local_grads(num_classes, config, masked=False)
 
     def step(params, state, batch):
-        grads, new_state, metrics = grad_and_metrics(params, state, batch)
+        parts = local(params, state, batch)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        dist.barrier(group=mesh.group)
+        grads, new_state, metrics = _combine(mesh, *parts)
         optimizer.step(leaves(grads))
         return new_state, metrics
 
     return step
 
 
-def make_train_step_twophase(*args, **kwargs):
-    raise NotImplementedError(f"make_train_step_twophase {_MESH}")
-
-
 def make_eval_step(num_classes: int, config: YoloConfig, mesh=None,
                    masked: bool = False):
     """Validation loss with BN in inference mode, in float32; ``masked``:
     the batch carries a (B,) 0/1 "mask" and the loss is the mean over its
-    valid samples."""
-    if mesh is not None:
-        raise NotImplementedError(f"make_eval_step(mesh=...) {_MESH}")
+    valid samples.  On a ``mesh`` the batch is this rank's shard and the
+    loss is the mean over the ranks, weighted by valid counts when
+    ``masked`` (one ``_allreduce_slab``)."""
     anchors = config.anchors_grouped
 
     @torch.no_grad()
@@ -601,27 +719,60 @@ def make_eval_step(num_classes: int, config: YoloConfig, mesh=None,
                                   config.loss_prob_weight),
                          sample_mask=mask)
 
-    return step
+    if mesh is None:
+        return step
+
+    def mesh_step(params, state, batch):
+        w = _rank_weight(batch, masked, 1)
+        (loss,) = _allreduce_slab(mesh, [step(params, state, batch)], w)
+        return loss
+
+    return mesh_step
+
+
+class _Shard(dict):
+    """This rank's rows of a global batch, already on the mesh's device
+    (``Trainer._place``); ``digest`` is the global batch's
+    (``_batch_digest``) when the producer was asked for it."""
+    digest = None
+
+
+def _batch_digest(batch) -> int:
+    """An order-sensitive checksum (CRC-32) of a host batch's bytes."""
+    crc = 0
+    for x in leaves(batch):
+        crc = zlib.crc32(np.ascontiguousarray(np.asarray(x)).view(np.uint8),
+                         crc)
+    return crc
 
 
 class Trainer:
-    """Owns (params, state, optimizer) on one device and runs epochs over a
-    DataGenerator.
+    """Owns (params, state, optimizer) and runs epochs over a DataGenerator.
 
     ``optimizer``: a function of the parameter tensors that returns an
     optimizer with ``step(grads)`` (default: ``make_optimizer``).  The
     device is the card unless the caller asks for the CPU, and raises
     without CUDA.
+
+    Data-parallel: ``mesh`` (``parallel.mesh.make_mesh``), or
+    ``config.num_devices > 1``, which builds ``make_mesh(num_devices,
+    device)`` over the process group.  Then the device is the mesh's, rank
+    0's params and BN state are broadcast to every rank at construction,
+    each step runs on this rank's rows of the global batch the generator
+    yields (every rank must see the same batches: seed the generator), only
+    rank 0 writes checkpoints and prints, and ``fit`` checks at its first
+    batch that every rank holds the same one.
     """
 
     def __init__(self, config: YoloConfig, num_classes: int, params, state,
                  mesh=None, schedule=None, optimizer=None, device="cuda"):
-        if mesh is not None or config.num_devices > 1:
-            raise NotImplementedError(f"Trainer with a mesh or num_devices>1 "
-                                      f"{_MESH}")
         self.config = config
         self.num_classes = num_classes
-        self.device = resolve_device(device)
+        if mesh is None and config.num_devices > 1:
+            mesh = make_mesh(config.num_devices, device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
 
         def place(t):
             return torch.as_tensor(t).detach().to(self.device, torch.float32,
@@ -629,51 +780,88 @@ class Trainer:
 
         self.params = tree_map(place, params)
         self.state = tree_map(place, state)
+        if mesh is not None:
+            replicate(self.params, mesh)
+            replicate(self.state, mesh)
         tensors = leaves(self.params)
         self.optimizer = (optimizer(tensors) if optimizer is not None
                           else make_optimizer(config, tensors, schedule))
-        self._step = make_train_step(num_classes, config, self.optimizer)
-        self._eval = make_eval_step(num_classes, config)
+        self._step = make_train_step(num_classes, config, self.optimizer,
+                                     mesh)
+        self._step_masked = None   # lazy: mesh pad-and-mask variant
+        self._eval = make_eval_step(num_classes, config, mesh)
         self._eval_masked = None   # lazy: pad-and-mask eval (ragged tails)
         self._chunk_grad = None    # lazy: gradient core for aligned chunks
+        self._digest_wanted = False  # fit's same-batch check is pending
         self.global_step = 0
         self.history = []
 
-    def _place(self, batch):
+    @property
+    def _writer(self) -> bool:
+        """Whether this process writes files and prints (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _place(self, batch, batch_axis: int = 0):
+        """The batch on the device; on a mesh, this rank's rows of it (a
+        ``_Shard``; ``batch_axis`` 1 for micro-batch stacks)."""
+        if self.mesh is not None:
+            return _Shard(shard_batch(batch, self.mesh, batch_axis))
         return tree_map(lambda x: torch.as_tensor(x).to(self.device), batch)
 
     def _prefetch_place(self, batch):
-        """Producer-thread placement: copies a full batch to the card from
-        pinned host memory without blocking, so batch N+1's copy overlaps
-        batch N's step (both on the current stream, so the step sees the
-        copied bytes).  Batches that train_step pads or chunks stay on the
-        host."""
+        """Producer-thread placement: copies a full batch (on a mesh, this
+        rank's rows of it) to the card from pinned host memory without
+        blocking, so batch N+1's copy overlaps batch N's step (both on the
+        current stream, so the step sees the copied bytes).  Batches that
+        train_step pads or chunks stay on the host."""
         b = _batch_size(batch)
+        if self.mesh is not None:
+            if self.config.grad_accum_steps != 1 or b % self.mesh.size:
+                return batch
+            shard = self._place(batch)
+            if self._digest_wanted:
+                shard.digest = _batch_digest(batch)
+            return shard
         if self.config.grad_accum_steps != 1 or not aligned_batch(b):
             return batch
         return tree_map(lambda x: to_device_async(x, self.device), batch)
 
     def train_step(self, batch) -> dict:
         """Run one optimizer step; never drops samples.  A non-aligned batch
-        runs as aligned chunks; a batch that does not split into
-        ``grad_accum_steps`` micro-batches is padded with a validity mask."""
-        batch = tree_map(torch.as_tensor, batch)
-        accum = self.config.grad_accum_steps
-        b = _batch_size(batch)
-        if accum == 1 and not aligned_batch(b):
-            return self._chunked_step(batch)
-        if accum > 1:
+        on one device runs as aligned chunks; a batch that does not split
+        into ``grad_accum_steps`` x mesh-size micro-batches is padded with a
+        validity mask (on a mesh, the masked step then weighs each rank by
+        its valid count).  On a mesh ``batch`` is the global batch, or this
+        rank's ``_Shard`` of it from ``_place``."""
+        if not isinstance(batch, _Shard):
+            batch = tree_map(torch.as_tensor, batch)
+            accum = self.config.grad_accum_steps
+            b = _batch_size(batch)
+            if accum == 1 and self.mesh is None and not aligned_batch(b):
+                return self._chunked_step(batch)
+            # Full batches (batch_size per rank) must split into accum
+            # micro-batches on every rank; a ragged tail is padded.
             if self.config.batch_size % accum:
                 raise ValueError(
                     f"full batches of {self.config.batch_size} samples "
-                    f"cannot be split into grad_accum_steps={accum} "
-                    "micro-batches — lower grad_accum_steps or raise "
-                    "batch_size")
-            if b % accum:
-                batch = pad_mask_batch(batch, -(-b // accum) * accum)
-            batch = chunk_batch(batch, accum)
-        self.state, metrics = self._step(self.params, self.state,
-                                         self._place(batch))
+                    f"per device cannot be split into grad_accum_steps="
+                    f"{accum} micro-batches — lower grad_accum_steps or "
+                    "raise batch_size")
+            multiple = accum * (self.mesh.size if self.mesh is not None
+                                else 1)
+            if b % multiple:
+                batch = pad_mask_batch(batch, -(-b // multiple) * multiple)
+            if accum > 1:
+                batch = chunk_batch(batch, accum)
+            batch = self._place(batch, batch_axis=1 if accum > 1 else 0)
+        step = self._step
+        if self.mesh is not None and "mask" in batch:
+            if self._step_masked is None:
+                self._step_masked = make_train_step(
+                    self.num_classes, self.config, self.optimizer, self.mesh,
+                    masked=True)
+            step = self._step_masked
+        self.state, metrics = step(self.params, self.state, batch)
         self.global_step += 1
         return metrics
 
@@ -709,6 +897,26 @@ class Trainer:
         self.global_step += 1
         return metrics
 
+    def _check_same_batch(self, batch) -> None:
+        """Raise on every rank unless every rank holds rank 0's batch: a
+        broadcast of rank 0's checksum, then an all-reduce of the
+        mismatches.  Once per ``fit``."""
+        self._digest_wanted = False
+        digest = (batch.digest if isinstance(batch, _Shard)
+                  else _batch_digest(batch))
+        mine = torch.tensor(digest, dtype=torch.int64,
+                            device=self.mesh.device)
+        ref = mine.clone()
+        dist.broadcast(ref, 0, group=self.mesh.group)
+        bad = (ref != mine).to(torch.int64)
+        dist.all_reduce(bad, group=self.mesh.group)
+        if int(bad):
+            raise RuntimeError(
+                f"fit: {int(bad)} of {self.mesh.size} ranks hold another "
+                "first batch than rank 0; every rank must draw the same "
+                "global batches — seed the generator (DataGenerator(seed="
+                "...)), whose default seed=None differs per process")
+
     # -- mutable learning rate (callback-driven scheduling) ---------------
     def _lr_group(self) -> dict:
         opt = self.optimizer
@@ -731,15 +939,21 @@ class Trainer:
         self._lr_group()["lr"] = _f32(lr)
 
     def eval_step(self, batch):
-        """Validation loss on one batch; a non-aligned batch is padded with
-        a validity mask and gives exactly the trimmed batch's loss."""
+        """Validation loss on one batch.  A batch that does not split evenly
+        across the mesh (or is non-aligned on one device) is padded with a
+        validity mask and gives exactly the trimmed batch's loss."""
         batch = tree_map(torch.as_tensor, batch)
         b = _batch_size(batch)
-        if not aligned_batch(b):
-            batch = pad_mask_batch(batch, aligned_size(b))
+        if self.mesh is not None:
+            n = self.mesh.size
+            target = -(-b // n) * n
+        else:
+            target = aligned_size(b) if not aligned_batch(b) else b
+        if target != b:
+            batch = pad_mask_batch(batch, target)
             if self._eval_masked is None:
                 self._eval_masked = make_eval_step(
-                    self.num_classes, self.config, masked=True)
+                    self.num_classes, self.config, self.mesh, masked=True)
             return self._eval_masked(self.params, self.state,
                                      self._place(batch))
         return self._eval(self.params, self.state, self._place(batch))
@@ -747,14 +961,19 @@ class Trainer:
     # -- checkpoint / resume ------------------------------------------------
     def save_checkpoint(self, path: str, epoch: int = -1):
         """Full training checkpoint: params + BN state + optimizer state, in
-        the JAX Trainer's file layout (``optimizer_leaves``)."""
+        the JAX Trainer's file layout (``optimizer_leaves``).  On a mesh
+        rank 0 alone writes while the other ranks wait for it."""
         from . import checkpoint as ckpt
-        params, state = network.params_to_jax(self.params, self.state)
-        ckpt.save_npz(path, params,
-                      {"model": state,
-                       "opt_leaves": optimizer_leaves(self.optimizer,
-                                                      self.params)},
-                      step=self.global_step, extra={"epoch": epoch})
+
+        def write():
+            params, state = network.params_to_jax(self.params, self.state)
+            ckpt.save_npz(path, params,
+                          {"model": state,
+                           "opt_leaves": optimizer_leaves(self.optimizer,
+                                                          self.params)},
+                          step=self.global_step, extra={"epoch": epoch})
+
+        on_rank0(self.mesh, write)
 
     @torch.no_grad()
     def restore_checkpoint(self, path: str) -> int:
@@ -762,7 +981,8 @@ class Trainer:
         next epoch.  Parameters are written into the tensors the optimizer
         holds.  Optimizer state whose leaves do not match this optimizer's
         layout (count, then each leaf's shape and dtype) is reinitialized,
-        as in the JAX Trainer."""
+        as in the JAX Trainer.  On a mesh every rank reads the same file,
+        so the ranks stay equal."""
         from . import checkpoint as ckpt
         params, wrapped, step, extra = ckpt._read_npz(path)
         if len(leaves(params)) != len(leaves(self.params)):
@@ -810,10 +1030,17 @@ class Trainer:
         optimizer) is written to ``resume_dir/latest.npz`` after every
         epoch's callbacks, and a later ``fit`` with the same directory
         resumes from it at the next epoch.
+
+        On a mesh only rank 0 prints, and the first batch is checked to be
+        the same on every rank (a broadcast of rank 0's checksum): ranks
+        that draw different batches raise, naming the generator's seed.
         """
         import os
 
         from .data.pipeline import prefetch
+
+        verbose = verbose and self._writer
+        self._digest_wanted = self.mesh is not None and self.mesh.size > 1
 
         latest = (os.path.join(resume_dir, "latest.npz")
                   if resume_dir else None)
@@ -835,6 +1062,8 @@ class Trainer:
             n, losses = 0, []
             for batch in prefetch(train_gen, epochs=1,
                                   transform=self._prefetch_place):
+                if self._digest_wanted:
+                    self._check_same_batch(batch)
                 metrics = self.train_step(batch)
                 n += 1
                 losses.append(metrics["loss"])
