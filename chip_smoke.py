@@ -134,7 +134,26 @@ exits non-zero without printing a result:
      rank 0 alone writing, both ranks' params and BN state equal, and rank
      0's checkpoint against the two steps emulated in this process
      (bit-equal, else rel-RMS 1e-6 per leaf).  Then the process group is
-     destroyed.
+     destroyed;
+ 10. distributed inference (``Yolov4.distribute``) and the video tool at
+     full depth, 416^2, COCO-80, bf16, on phase 3's calibrated weights:
+     (a) NCCL at world size 1 in this process: ``distribute(1)`` against
+     the plain facade at b8 and a ragged b5, "fast" (one ``suppress_rank``
+     launch a call) and "pallas" (one ``suppress`` launch a call), within
+     1e-3 per box; ``quantize`` then ``distribute`` against the
+     single-device int8 facade; ``utils.profiling.time_fn`` img/s of both
+     facades in turns; (b) two gloo ranks sharing the card, each a process
+     of this script (``--dist-worker``), rank 1's params offset before
+     ``distribute(2)``: b8, b5 and b1 on every rank within 1e-3 per box of
+     this process's single-device facade (float32, TF32 off; bf16 against
+     the single-device facade on the same row blocks, since a bf16 forward
+     of 4 rows rounds otherwise than one of 8), one ``suppress_rank``
+     launch and one ``all_gather`` a call, the all_gather's ms;
+     ``export_prediction`` (float32) of 8 of phase 5's JPEGs written by
+     rank 0 alone, on disk for both ranks when it returns, its files within
+     1e-3 of the single-device facade's; (c) a 40-frame 640x360 mp4v clip through the video tool's
+     command line (b8), its frames read back and counted, one
+     ``suppress_rank`` launch a batch, and frames/s.
 
 Each phase prints its seconds.  The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times (``device_ms`` from CUDA-graph
@@ -2872,6 +2891,456 @@ def dp_phase(torch, wgrad_cuda, wpath, folder, lines, card, per_step):
             "gloo_slab_ms": gl["slab_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# Distributed inference and the host tools: NCCL at world size 1, two gloo
+# ranks on one card, the video tool
+# ---------------------------------------------------------------------------
+
+def busy_config(**kw):
+    """Phase 10's model: full depth, 416^2, COCO-80, bf16 unless ``kw``
+    says otherwise."""
+    from yolov4tpu_torch.config import DEFAULT_CONFIG
+    kw.setdefault("compute_dtype", "bfloat16")
+    return dataclasses.replace(DEFAULT_CONFIG, **kw)
+
+
+def busy_model(busy, **kw):
+    """A facade on phase 3's calibrated weights (``busy``, a .weights file)
+    with COCO's class names underscored, as the evaluation files need."""
+    from yolov4tpu_torch.api import Yolov4
+    classes = SCRATCH / "coco_classes_underscored.txt"
+    return Yolov4(weight_path=str(busy), class_name_path=str(classes),
+                  config=busy_config(**kw))
+
+
+def agree(torch, got, want, label) -> float:
+    """Every image of two ``predict_batch`` outputs within 1e-3 per box and
+    score (``match_detections``), with a detection in each; returns the
+    largest deviation."""
+    check(tuple(got[0].shape) == tuple(want[0].shape) and got[0].is_cuda,
+          f"{label}: boxes {tuple(got[0].shape)} on {got[0].device}, want "
+          f"{tuple(want[0].shape)}")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in got),
+          f"{label}: non-finite outputs")
+    worst = 0.0
+    for i in range(got[0].shape[0]):
+        worst = max(worst, match_detections(numpy_outputs(got, i),
+                                            numpy_outputs(want, i), 1e-3))
+    return worst
+
+
+def counted_predict(torch, counter, model, imgs):
+    """``model.predict_batch(imgs)`` with ``nms_cuda``'s ``counter``
+    (LAUNCHES or SUPPRESS_LAUNCHES) zeroed just before and read just after:
+    (outputs, launches)."""
+    from yolov4tpu_torch.ops import nms_cuda
+    setattr(nms_cuda, counter, 0)
+    out = model.predict_batch(imgs)
+    torch.cuda.synchronize()
+    return out, getattr(nms_cuda, counter)
+
+
+def rate_in_turns(torch, models, imgs, card, label):
+    """``utils.profiling.time_fn`` img/s of each of ``models`` ({name:
+    facade}), in turns (a, b, b, a)."""
+    from yolov4tpu_torch.utils.profiling import time_fn
+    names = list(models)
+    rates = {n: [] for n in names}
+    for n in names + names[::-1]:
+        stats = time_fn(models[n].predict_batch, imgs, iters=10, warmup=2)
+        rates[n].append(len(imgs) / stats["mean_s"])
+    log(f"10{label} predict_batch b{len(imgs)} bf16 uint8, time_fn img/s in "
+        f"turns: " + ", ".join(f"{n} {', '.join(f'{r:.1f}' for r in rates[n])}"
+                              for n in names) + f" ({card})")
+    return rates
+
+
+def nccl_inference_phase(torch, busy, card):
+    """Phase 10a, NCCL at world size 1 in this process: ``distribute(1)``
+    against the plain facade at b8 and a ragged b5, "fast" (one
+    ``suppress_rank`` launch a call) and "pallas" (one ``suppress``
+    launch a call), and ``quantize`` then ``distribute`` against the
+    single-device int8 facade; img/s of both in turns.  Returns the
+    launches of the distributed calls."""
+    from yolov4tpu_torch.parallel import init_distributed
+
+    info = init_distributed(num_processes=1, process_id=0)
+    check(info["backend"] == "nccl" and info["num_processes"] == 1,
+          f"init_distributed: {info}")
+    u8 = scene(4, 8)
+    launches = {"LAUNCHES": 0, "SUPPRESS_LAUNCHES": 0}
+    rates = None
+    for impl, counter in (("fast", "LAUNCHES"),
+                          ("pallas", "SUPPRESS_LAUNCHES")):
+        plain = busy_model(busy, nms_impl=impl)
+        meshed = busy_model(busy, nms_impl=impl)
+        check(meshed.distribute(1) is meshed and meshed._mesh.size == 1
+              and meshed._mesh.device.type == "cuda",
+              f"distribute(1): {meshed._mesh}")
+        for b in (8, 5):
+            got, n = counted_predict(torch, counter, meshed, u8[:b])
+            check(n == 1, f"{impl} b{b}: {counter} {n} in one distributed "
+                  "predict_batch")
+            launches[counter] += n
+            worst = agree(torch, got, plain.predict_batch(u8[:b]),
+                          f"10a {impl} b{b}")
+            log(f"10a NCCL world size 1, {impl} b{b}: distributed == plain "
+                f"within {worst:.3g} (limit 1e-3), valid "
+                f"{got[3].tolist()}, one {counter} launch")
+        if impl == "fast":
+            rates = rate_in_turns(torch, {"distributed": meshed,
+                                          "plain": plain}, u8, card, "a")
+        del plain, meshed
+    calib = scene(5, 16).astype(np.float32) / 255.0
+    plain = busy_model(busy).quantize(calib_imgs=calib)
+    meshed = busy_model(busy).quantize(calib_imgs=calib).distribute(1)
+    check(any("wq" in p for p in meshed._folded["convs"]),
+          "quantize then distribute: the folded convs are not int8")
+    same = all(np.array_equal(plain._act_scales[k], meshed._act_scales[k])
+               for k in plain._act_scales)
+    log(f"10a two calibrations on the same images: scales "
+        f"{'bit-equal' if same else 'differ'}")
+    for b in (8, 5):
+        got, n = counted_predict(torch, "LAUNCHES", meshed, u8[:b])
+        check(n == 1, f"int8 b{b}: LAUNCHES {n}")
+        launches["LAUNCHES"] += n
+        worst = agree(torch, got, plain.predict_batch(u8[:b]),
+                      f"10a int8 b{b}")
+        log(f"10a quantize then distribute(1), int8 b{b}: == the "
+            f"single-device int8 facade within {worst:.3g} (limit 1e-3), "
+            f"valid {got[3].tolist()}")
+    del plain, meshed
+    torch.cuda.empty_cache()
+    return launches, rates
+
+
+def read_predictions(path: pathlib.Path, names, height: int, width: int):
+    """One ``export_prediction`` file as (boxes normalised by the image's
+    size, scores, class indices, count): ``match_detections``'s input."""
+    rows = [r.split() for r in path.read_text().splitlines()]
+    if not rows:
+        return np.zeros((0, 4)), np.zeros(0), np.zeros(0), 0
+    vals = np.array([[float(v) for v in r[1:]] for r in rows])
+    boxes = vals[:, 1:] / np.array([width, height, width, height])
+    classes = np.array([names.index(r[0]) for r in rows], np.float64)
+    return boxes, vals[:, 0], classes, len(rows)
+
+
+DIST_BATCHES = (8, 5, 1)
+DIST_DTYPES = ("float32", "bfloat16")
+
+
+def row_blocks(b: int, ranks: int):
+    """(start, stop, padded rows) of each rank's rows of a batch of b, as
+    ``predict_batch`` splits it on a mesh."""
+    rows = -(-b // ranks)
+    return [(min(r * rows, b), min((r + 1) * rows, b), rows)
+            for r in range(ranks)]
+
+
+def dist_worker(rank: int, work: pathlib.Path) -> int:
+    """One rank of phase 10b (``python3 chip_smoke.py --dist-worker RANK
+    DIR``): joins a gloo group of two ranks on the card through a FileStore
+    in DIR and, for float32 (TF32 off) and bf16, builds the facade on
+    phase 3's weights (rank 1 adds 0.25 to every parameter first),
+    ``distribute(2)``, and runs ``predict_batch`` on the first 8, 5 and 1
+    images of one scene batch; then ``export_prediction`` (float32, b8)
+    over DIR/anno.txt into DIR/pred_r<RANK> and ``time_fn`` of the bf16
+    ``predict_batch`` at b8.  Writes DIR/out<RANK>.npz (the outputs) and
+    DIR/rank<RANK>.json: the ``suppress_rank`` launches and ``all_gather``
+    calls of each call, the ms of the timed b8 calls' ``gather_rows``
+    (host clock, the card drained before and after) and the bytes each
+    rank sends in it, the files of rank 0 seen when the export returned,
+    and img/s."""
+    import torch
+    import torch.distributed as dist
+
+    from yolov4tpu_torch import api, train
+    from yolov4tpu_torch.ops import nms_cuda
+    from yolov4tpu_torch.parallel import init_distributed
+    from yolov4tpu_torch.utils.profiling import time_fn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    info = init_distributed(f"file://{work / 'store'}", 2, rank,
+                            backend="gloo")
+    gathers = []
+    real_gather = api.gather_rows
+
+    def timed_gather(tensors, mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_gather(tensors, mesh)
+        torch.cuda.synchronize()
+        gathers.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    api.gather_rows = timed_gather
+    u8 = scene(4, 8)
+    outs, launches, calls, models = {}, {}, {}, {}
+    for dtype in DIST_DTYPES:
+        model = busy_model(SCRATCH / "busy80.weights", compute_dtype=dtype)
+        if rank:
+            model.sync_params(train.tree_map(lambda t: t + 0.25,
+                                             model.params), model.state)
+        models[dtype] = model.distribute(2)
+        for b in DIST_BATCHES:
+            key = f"{dtype}/b{b}"
+            before = len(gathers)
+            out, launches[key] = counted_predict(torch, "LAUNCHES", model,
+                                                 u8[:b])
+            calls[key] = len(gathers) - before
+            for i, o in enumerate(out):
+                outs[f"{key}/{i}"] = o.float().cpu().numpy()
+    nms_cuda.LAUNCHES = 0
+    before = len(gathers)
+    models["float32"].export_prediction(
+        str(work / "anno.txt"), str(work / f"pred_r{rank}"),
+        str(SCRATCH / "train"), bs=8, verbose=False)
+    torch.cuda.synchronize()
+    export = {"launches": nms_cuda.LAUNCHES,
+              "gathers": len(gathers) - before,
+              "rank0_files": sorted(p.name for p in
+                                    (work / "pred_r0").glob("*.txt"))}
+    iters = 10
+    stats = time_fn(models["bfloat16"].predict_batch, u8, iters=iters,
+                    warmup=2)
+    np.savez(work / f"out{rank}.npz", **outs)
+    (work / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "info": info, "launches": launches, "calls": calls,
+        "export": export, "gather_ms": gathers[-iters:],
+        "gather_bytes": sum(o.nbytes for k, o in outs.items()
+                            if k.startswith("bfloat16/b8/")) // 2,
+        "img_s": len(u8) / stats["mean_s"]}))
+    dist.destroy_process_group()
+    return 0
+
+
+def pairs_within(a, b, tol: float) -> bool:
+    """Whether ``match_detections`` pairs one image's detections within
+    ``tol`` (a measurement, not a check)."""
+    try:
+        match_detections(a, b, tol)
+    except SmokeFailure:
+        return False
+    return True
+
+
+def gloo_inference_phase(torch, busy, folder, lines, card):
+    """Phase 10b: two gloo ranks sharing the card, each a worker process
+    (``dist_worker``).  float32 (TF32 off): every rank's outputs within
+    1e-3 per box of this process's single-device facade on the whole
+    batch, rank 0 alone writing the prediction files, which agree with the
+    single-device facade's.  bf16: every rank's outputs within 1e-3 of the
+    single-device facade on the same rows (each rank's padded block); a
+    bf16 forward of 4 rows rounds differently from one of 8 (other cuDNN
+    kernels), so the whole batch's bf16 result is only reported against.
+    Returns the workers' ``suppress_rank`` launches and timings."""
+    import shutil
+
+    import cv2
+
+    work = SCRATCH / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (work / "anno.txt").write_text("\n".join(lines[:8]) + "\n")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker",
+         str(r), str(work)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"distributed-inference rank {r} failed "
+              f"(exit {p.returncode}):\n{text[-4000:]}")
+    workers_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    outs = []
+    for r in range(2):
+        with np.load(work / f"out{r}.npz") as f:
+            outs.append(dict(f))
+
+    u8 = scene(4, 8)
+    worst = {d: 0.0 for d in DIST_DTYPES}
+    # bf16 images within 1e-3 of the whole-batch call, and images compared.
+    bf16_whole = [0, 0]
+    for dtype in DIST_DTYPES:
+        plain = busy_model(busy, compute_dtype=dtype)
+        for b in DIST_BATCHES:
+            if dtype == "float32":
+                want = plain.predict_batch(u8[:b])
+            else:
+                blocks = []
+                for start, stop, rows in row_blocks(b, 2):
+                    x = np.zeros((rows, *u8.shape[1:]), u8.dtype)
+                    x[:stop - start] = u8[start:stop]
+                    blocks.append(plain.predict_batch(x))
+                want = [torch.cat([blk[i] for blk in blocks])[:b]
+                        for i in range(4)]
+                whole = plain.predict_batch(u8[:b])
+            for rk, out in zip(ranks, outs):
+                key = f"{dtype}/b{b}"
+                check(rk["launches"][key] == 1 and rk["calls"][key] == 1,
+                      f"rank {rk['rank']} {key}: {rk['launches'][key]} "
+                      f"suppress_rank launches, {rk['calls'][key]} "
+                      "all_gathers (one each)")
+                got = [torch.from_numpy(out[f"{key}/{i}"]).cuda()
+                       for i in range(4)]
+                worst[dtype] = max(worst[dtype], agree(
+                    torch, got, want, f"10b rank {rk['rank']} {key}"))
+                if dtype == "bfloat16":
+                    for i in range(b):
+                        bf16_whole[0] += pairs_within(
+                            numpy_outputs(got, i), numpy_outputs(whole, i),
+                            1e-3)
+                        bf16_whole[1] += 1
+        if dtype == "float32":
+            plain.export_prediction(str(work / "anno.txt"),
+                                    str(work / "pred_single"), str(folder),
+                                    bs=8, verbose=False)
+            names = plain.class_names
+        del plain
+    for rk in ranks:
+        check(rk["info"]["backend"] == "gloo"
+              and rk["info"]["num_processes"] == 2, f"rank {rk['rank']}: "
+              f"{rk['info']}")
+        check(rk["export"]["launches"] == 1 and rk["export"]["gathers"] == 1,
+              f"rank {rk['rank']}: export_prediction of 8 images at b8: "
+              f"{rk['export']}")
+    check(not (work / "pred_r1").exists(), "rank 1 wrote prediction files")
+    files = [f"train{i}.txt" for i in range(8)]
+    for rk in ranks:
+        check(rk["export"]["rank0_files"] == files, f"rank {rk['rank']} saw "
+              f"{rk['export']['rank0_files']} when export_prediction returned")
+    file_worst = 0.0
+    for name in files:
+        h, w = cv2.imread(str(folder / name.replace(".txt", ".jpg"))).shape[:2]
+        got, want = (read_predictions(work / d / name, names, h, w)
+                     for d in ("pred_r0", "pred_single"))
+        check(got[3] > 0, f"{name}: no detections")
+        file_worst = max(file_worst, match_detections(got, want, 1e-3))
+    gather_ms = sorted(m for rk in ranks for m in rk["gather_ms"])
+    log(f"10b two gloo ranks on one card (rank 1's params offset before "
+        f"distribute): b8, b5, b1 on every rank, float32 within "
+        f"{worst['float32']:.3g} of the single-device facade, bf16 within "
+        f"{worst['bfloat16']:.3g} of it on the same row blocks (limit "
+        f"1e-3); one suppress_rank launch and one all_gather a call; bf16 "
+        f"against the single-device call on the whole batch: "
+        f"{bf16_whole[0]} of {bf16_whole[1]} images within 1e-3; "
+        f"workers {workers_s:.1f} s ({card})")
+    log(f"10b export_prediction (float32, b8) of 8 JPEGs: rank 0 alone "
+        f"wrote, both ranks saw its 8 files on return, within "
+        f"{file_worst:.3g} of the single-device facade's files")
+    log(f"10b gather_rows (one all_gather over gloo, "
+        f"{ranks[0]['gather_bytes']} bytes a rank) in the timed b8 calls: "
+        f"{len(gather_ms)} calls on the two ranks, median "
+        f"{statistics.median(gather_ms):.3f} ms, range {gather_ms[0]:.3f}-"
+        f"{gather_ms[-1]:.3f} ms (host clock, card drained; {card})")
+    rates = ", ".join(f"{rk['img_s']:.1f}" for rk in ranks)
+    log(f"10b time_fn predict_batch b8 bf16 uint8 over two gloo ranks: "
+        f"{rates} img/s (ranks 0, 1; {card})")
+    torch.cuda.empty_cache()
+    return {"suppress_rank": sum(sum(rk["launches"].values())
+                                 + rk["export"]["launches"] for rk in ranks),
+            "gather_ms": gather_ms,
+            "img_s": [rk["img_s"] for rk in ranks]}
+
+
+def video_phase(torch, busy, card, frames: int = 40, size=(640, 360)):
+    """Phase 10c: a synthetic mp4v clip of ``frames`` scene frames at
+    ``size`` annotated through the video tool's command line (416^2, b8,
+    bf16, phase 3's weights), its frames read back and counted, one
+    ``suppress_rank`` launch a batch; frames/s of ``annotate_video``.
+    Returns its launches and rate."""
+    import cv2
+
+    from yolov4tpu_torch.ops import nms_cuda
+    from yolov4tpu_torch.tools import video
+
+    clip, out = SCRATCH / "clip.mp4", SCRATCH / "clip_annotated.mp4"
+    writer = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"mp4v"),
+                             25.0, size)
+    check(writer.isOpened(), f"cv2 {cv2.__version__} cannot write mp4v")
+    for i in range(frames):
+        writer.write(cv2.resize(scene(40 + i, 1)[0], size))
+    writer.release()
+    seconds = []
+    real = video.annotate_video
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        n = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return n
+
+    video.annotate_video = timed
+    nms_cuda.LAUNCHES = 0
+    try:
+        n = video.main(["--weights", str(busy), "--classes",
+                        str(SCRATCH / "coco_classes_underscored.txt"),
+                        "--input", str(clip), "--output", str(out),
+                        "--bs", "8"])
+    finally:
+        video.annotate_video = real
+    torch.cuda.synchronize()
+    launches = nms_cuda.LAUNCHES
+    cap = cv2.VideoCapture(str(out))
+    check(cap.isOpened(), f"cannot read {out.name} back")
+    fourcc = int(cap.get(cv2.CAP_PROP_FOURCC))
+    codec = "".join(chr((fourcc >> 8 * i) & 0xFF) for i in range(4))
+    read = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        check(frame.shape[:2] == (size[1], size[0]),
+              f"frame {read} is {frame.shape}")
+        read += 1
+    cap.release()
+    batches = -(-frames // 8)
+    check(n == frames and read == frames, f"annotate_video returned {n}, "
+          f"{read} frames read back, {frames} written")
+    check(launches == batches, f"suppress_rank launched {launches} times "
+          f"for {batches} batches")
+    rate = frames / seconds[0]
+    log(f"10c video CLI: {frames} frames {size[0]}x{size[1]} annotated at "
+        f"416^2 b8 bf16, written with mp4v, {read} read back (FOURCC "
+        f"{codec!r}, cv2 {cv2.__version__}), {launches} suppress_rank "
+        f"launches; annotate_video {rate:.1f} frames/s ({card})")
+    return {"suppress_rank": launches, "frames_s": rate, "codec": codec}
+
+
+def distributed_phase(torch, busy, folder, lines, card):
+    """Phase 10: distributed inference (10a NCCL at world size 1, 10b two
+    gloo ranks on one card) and the video tool (10c); this process's group
+    destroyed after 10a."""
+    import torch.distributed as dist
+    t = time.perf_counter()
+    launches, rates = nccl_inference_phase(torch, busy, card)
+    dist.destroy_process_group()
+    log(f"phase 10a: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    gloo = gloo_inference_phase(torch, busy, folder, lines, card)
+    log(f"phase 10b: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    vid = video_phase(torch, busy, card)
+    log(f"phase 10c: {time.perf_counter() - t:.1f} s")
+    return {"suppress_rank": (launches["LAUNCHES"] + gloo["suppress_rank"]
+                              + vid["suppress_rank"]),
+            "suppress": launches["SUPPRESS_LAUNCHES"], "rates": rates,
+            "gather_ms": gloo["gather_ms"], "frames_s": vid["frames_s"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3083,6 +3552,14 @@ def main() -> int:
     parallel = dp_phase(torch, wgrad_cuda, wpath, folder, lines, card,
                         sum(shapes.values()))
     phase_done("9 (data-parallel training)")
+
+    # --- 10. distributed inference and the video tool ---------------------
+    busy = SCRATCH / "busy80.weights"
+    weights.save_darknet_weights(params, m32.state, str(busy))
+    del m32
+    torch.cuda.empty_cache()
+    served10 = distributed_phase(torch, busy, folder, lines, card)
+    phase_done("10 (distributed inference and video)")
     log(f"all phases: {time.perf_counter() - start:.1f} s")
 
     kernels = [{"name": "suppress_rank", "route": "cuda",
@@ -3091,7 +3568,8 @@ def main() -> int:
                 "launches": (launches + persisted["suppress_rank"]
                              + int8_launches + served["suppress_rank"]
                              + ingested["suppress_rank"]
-                             + parallel["suppress_rank"]),
+                             + parallel["suppress_rank"]
+                             + served10["suppress_rank"]),
                 "max_abs_err": worst,
                 "ms": k8["ms"], "device_ms": k8["device_ms"],
                 "plain_ms": k8["plain_ms"],
@@ -3101,7 +3579,7 @@ def main() -> int:
                 "source": "yolov4tpu_torch/csrc/suppress.cu",
                 "replaces": "yolov4tpu/ops/nms_pallas.py:37",
                 "launches": (eval_launches + persisted["suppress"]
-                             + served["suppress"]),
+                             + served["suppress"] + served10["suppress"]),
                 "max_abs_err": sorted_worst,
                 "ms": s8["ms"], "device_ms": s8["device_ms"],
                 "plain_ms": s8["plain_ms"],
@@ -3134,4 +3612,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(int(sys.argv[2]), pathlib.Path(sys.argv[3])))
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(int(sys.argv[2]), pathlib.Path(sys.argv[3])))
     sys.exit(main())

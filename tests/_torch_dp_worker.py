@@ -13,7 +13,12 @@ calls each made, and its seconds.  A "fit" scenario writes its checkpoints
 under ``<work dir>/<scenario name>/``.  A "rank0_eval" scenario runs
 ``EvalMapCallback`` over ``SlowEvaluator``, slow and then failing on rank
 0, each time followed by a step, on a mesh whose steps' group has a short
-collective timeout.
+collective timeout.  A "distribute" scenario shards a facade's inference
+over the ranks (``Yolov4.distribute``; rank 1's params offset first) and
+records its ``predict_batch`` outputs, float and int8, and how many
+``all_gather`` calls each made, exports prediction files into
+``<work dir>/<scenario name>/pred_r<rank>``, then runs ``fit`` with
+``MetricsLogger`` and ``EvalMapCallback`` on the distributed facade.
 
 Imports the port only (no JAX, nothing of the tests' conftest), so the
 parent test's JAX state never reaches it.
@@ -27,6 +32,7 @@ import json
 import pathlib
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -88,6 +94,10 @@ def main():
     rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     work = pathlib.Path(work)
     torch.set_num_threads(1)
+    # tensorboard's no-TensorFlow mode (its stub file writer): where
+    # TensorFlow is installed, tensorboard imports it, which takes ~13 s.
+    sys.modules["tensorboard.compat.notf"] = types.ModuleType(
+        "tensorboard.compat.notf")
     import torch.distributed as dist
 
     from yolov4tpu_torch import train
@@ -101,8 +111,9 @@ def main():
     assert info["num_processes"] == world and info["backend"] == "gloo", info
     mesh = make_mesh(world, device="cpu")
 
-    counts = {"all_reduce": 0, "slab": 0}
+    counts = {"all_reduce": 0, "slab": 0, "all_gather": 0}
     real_all_reduce, real_slab = dist.all_reduce, train._allreduce_slab
+    real_all_gather = dist.all_gather
 
     def counted_all_reduce(*a, **k):
         counts["all_reduce"] += 1
@@ -112,8 +123,13 @@ def main():
         counts["slab"] += 1
         return real_slab(*a, **k)
 
+    def counted_all_gather(*a, **k):
+        counts["all_gather"] += 1
+        return real_all_gather(*a, **k)
+
     dist.all_reduce = counted_all_reduce
     train._allreduce_slab = counted_slab
+    dist.all_gather = counted_all_gather
 
     spec = json.loads((work / "spec.json").read_text())
     num_classes = spec["num_classes"]
@@ -230,6 +246,58 @@ def main():
                 out[f"{name}/evaluations{i}"] = np.asarray(len(cb.history))
                 metrics = tr.train_step(read_batch(inputs, sc["batch"]))
                 record(f"{name}{i}", tr.params, tr.state, metrics)
+        elif kind == "distribute":
+            from yolov4tpu_torch.api import Yolov4
+            from yolov4tpu_torch.utils.metrics import MetricsLogger
+            model = Yolov4(None, sc["classes"], config=cfg, device="cpu")
+            params, state = fresh()
+            if rank:
+                params = train.tree_map(lambda t: t + sc["offset"], params)
+            model.sync_params(params, state)
+            assert model.distribute(world) is model
+
+            def predict(prefix, batches):
+                for b in batches:
+                    before = counts["all_gather"]
+                    outs = model.predict_batch(inputs[b])
+                    out[f"{prefix}/{b}/all_gather"] = np.asarray(
+                        counts["all_gather"] - before)
+                    for i, o in enumerate(outs):
+                        out[f"{prefix}/{b}/{i}"] = o.numpy()
+
+            predict(name, sc["batches"])
+            model.quantize(calib_imgs=inputs[sc["calib"]])
+            predict(f"{name}_int8", sc["batches"])
+            model.dequantize()
+            before = counts["all_gather"]
+            model.export_prediction(sc["annotation"],
+                                    str(work / name / f"pred_r{rank}"),
+                                    sc["folder"], bs=sc["bs"],
+                                    verbose=False)
+            out[f"{name}/export_all_gather"] = np.asarray(
+                counts["all_gather"] - before)
+            # Every file of rank 0 is on disk when the call returns.
+            out[f"{name}/rank0_files"] = np.asarray(
+                sorted(p.name for p in (work / name / "pred_r0").iterdir()))
+            # fit: the trainer (num_devices ranks) starts from rank 0's
+            # params; the facade evaluates after each epoch.
+            fit = sc["fit"]
+            for k in counts:
+                counts[k] = 0
+            logger = MetricsLogger(str(work / name / "logs"))
+            ev = EvalMapCallback(model, fit["annotation"], sc["folder"],
+                                 str(work / name / "eval"), every=1,
+                                 verbose=0)
+            gen = DataGenerator(fit["lines"], sc["classes"], sc["folder"],
+                                config=cfg, seed=0, use_native=False)
+            history = model.fit(gen, epochs=fit["epochs"],
+                                callbacks=[logger, ev], verbose=False)
+            logger.close()
+            out[f"{name}_fit/losses"] = np.asarray(
+                [h["loss"] for h in history])
+            out[f"{name}_fit/maps"] = np.asarray(
+                [h["mAP"] for h in ev.history])
+            record(f"{name}_fit", model.params, model.state)
         else:
             raise ValueError(f"unknown scenario kind {kind!r}")
         out[f"{name}/seconds"] = np.asarray(time.perf_counter() - t0)

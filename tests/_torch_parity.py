@@ -238,10 +238,11 @@ class DPWorkers:
     waits for both (each with a timeout) and returns their outputs, rank 0
     first.  ``spec``: {"num_classes", "scenarios": [...]}; ``params``,
     ``state``: the port's CPU tensors (``torch_params``); ``batches``:
-    name -> a global batch of numpy arrays."""
+    name -> a global batch of numpy arrays; ``arrays``: name -> a numpy
+    array, stored in inputs.npz under its name."""
 
     def __init__(self, work, spec, params, state, batches, world: int = 2,
-                 timeout: float = 120.0):
+                 timeout: float = 120.0, arrays=None):
         import json
         import os
         import pathlib
@@ -261,6 +262,7 @@ class DPWorkers:
                 flat[f"{name}/labels/{i}"] = g
             if "mask" in b:
                 flat[f"{name}/mask"] = b["mask"]
+        flat.update(arrays or {})
         np.savez(self.work / "inputs.npz", **flat)
         here = pathlib.Path(__file__).resolve().parent
         env = dict(os.environ, PYTHONPATH=str(here.parent),

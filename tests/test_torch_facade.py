@@ -1,6 +1,7 @@
 """The port's ``Yolov4`` facade has every method of the JAX package's:
-the ones not ported yet raise ``NotImplementedError`` naming their item in
-``ROADMAP.md`` (not ``AttributeError``), and take the JAX signatures; the
+the options not ported yet (``distribute(axis="spatial")``) raise
+``NotImplementedError`` naming their item in ``ROADMAP.md`` (not
+``AttributeError``), and the methods take the JAX signatures; the
 ported ``save_model`` / ``load_model`` round-trip the weights exactly
 (``quantize`` / ``dequantize``: test_torch_quantize_facade.py).
 """
@@ -19,7 +20,7 @@ from yolov4tpu_torch.weights import force_busy_heads
 
 # method -> (arguments of the call, the ROADMAP.md item its message names)
 STUBS = {
-    "distribute": ((), "item 14"),
+    "distribute": ((None, "spatial"), "item 14"),
 }
 
 

@@ -144,7 +144,8 @@ def test_shard_batch_refuses_an_uneven_split():
 
 @pytest.mark.parametrize("test_size,shard", [
     (None, None), (None, (1, 3)), (0.1, None), (0.25, (0, 2)),
-    (0.33, (2, 3)), (5, (1, 2))])
+    (0.33, (2, 3)), (5, (1, 2)), (np.int32(2), None),
+    (np.int64(2), (0, 2))])
 def test_read_annotation_lines_equals_jax(tmp_path, test_size, shard):
     path = tmp_path / "anno.txt"
     path.write_text("".join(f"img{i}.jpg {i},2,{i + 9},30,{i % 3}\n"

@@ -8,12 +8,13 @@ and ``load_model``; ``predict``, ``predict_img``, ``predict_batch``,
 letterbox preprocessing); the mAP pipeline ``export_gt`` /
 ``export_prediction`` / ``eval_map``; ``trainer``, ``fit`` and
 ``sync_from_trainer``; int8 post-training quantization, ``quantize`` and
-``dequantize`` (``models.quantize``).  The inference path is the
-BN-folded forward (models.network) -> fused decode (ops.detect) ->
-candidate NMS with the CUDA suppression kernel (ops.nms_cuda); with
-``nms_impl="pallas"`` it is decode -> per-class top-K -> the sorted CUDA
-suppression kernel (``nms_cuda.combined_nms_sorted``).  Training is
-``train.Trainer``.
+``dequantize`` (``models.quantize``); inference sharded on the batch over
+the ranks of a process group, ``distribute`` (``parallel.mesh``).  The
+inference path is the BN-folded forward (models.network) -> fused decode
+(ops.detect) -> candidate NMS with the CUDA suppression kernel
+(ops.nms_cuda); with ``nms_impl="pallas"`` it is decode -> per-class
+top-K -> the sorted CUDA suppression kernel
+(``nms_cuda.combined_nms_sorted``).  Training is ``train.Trainer``.
 
 The entry points run on the card: ``device="cuda"`` is the default and
 raises on a host without CUDA.  ``device="cpu"`` runs the same code on the
@@ -37,6 +38,7 @@ from .ops.detect import detect_fused
 from .ops.nms import combined_nms
 from .ops.nms_cuda import combined_nms_sorted
 from .data.pipeline import letterbox_resize
+from .parallel.mesh import barrier, gather_rows, replicate
 from .train import Trainer, tree_map
 from .utils.stream import threaded_map
 from .utils.visualize import draw_bbox, get_detection_data
@@ -133,6 +135,7 @@ class Yolov4:
         self._trainer = None
         self._act_scales = None  # set by quantize(): int8 inference on
         self._q_dataflow = "int8"
+        self._mesh = None        # set by distribute(): sharded inference
         self.build_model(load_pretrained=bool(weight_path))
 
     # ------------------------------------------------------------------
@@ -168,13 +171,19 @@ class Yolov4:
     def _refresh_inference(self, folded=None):
         """Fold BN (``quantize`` passes its fold through ``folded``),
         requantize with the kept calibration scales on a quantized facade,
-        place the params and build the raw and inference functions."""
+        place the params and build the raw and inference functions.  On a
+        mesh (``distribute``) every rank takes rank 0's fold and scales
+        before quantizing, so every rank serves rank 0's weights: each
+        rank calls this at the same point."""
         if self.config.compute_dtype not in _DTYPES:
             raise ValueError(
                 f"unknown compute_dtype {self.config.compute_dtype!r}")
         self._compute_dtype = _DTYPES[self.config.compute_dtype]
         if folded is None:
             folded = network.fold_bn(self.params, self.state)
+        if self._mesh is not None:
+            replicate({"folded": folded, "scales": self._act_scales},
+                      self._mesh)
         if self._act_scales is not None:
             from .models.quantize import quantize_folded
             folded = quantize_folded(folded, self._act_scales,
@@ -258,9 +267,32 @@ class Yolov4:
 
     def distribute(self, num_devices: Optional[int] = None,
                    axis: str = "batch"):
-        raise NotImplementedError(
-            "sharded inference across devices is not ported yet "
-            "(ROADMAP.md queue A item 14)")
+        """Shard batched inference over the ranks of the process group
+        (``parallel.init_distributed`` first, or torchrun), one process per
+        device, as data-parallel training runs.
+
+        ``axis="batch"``: every rank passes ``predict_batch`` the same global
+        batch, runs its own contiguous rows of it (the batch padded with
+        zero images to a multiple of the rank count) and gets every rank's
+        detections back through one ``all_gather``; the folded weights are
+        rank 0's, on every refresh.  Files (``export_prediction``, the
+        video tool) are written by rank 0.  ``num_devices`` (default
+        ``config.num_devices``) must equal the world size.  Every rank
+        calls this, and every later inference call, at the same point.
+        ``axis="spatial"`` (the image's rows sharded) is not ported yet.
+        """
+        if axis not in ("batch", "spatial"):
+            raise ValueError(
+                f"axis must be 'batch' or 'spatial', got {axis!r}")
+        if axis == "spatial":
+            raise NotImplementedError(
+                "spatial-sharded inference is not ported yet "
+                "(ROADMAP.md queue A item 14c)")
+        from .parallel.mesh import make_mesh
+        self._mesh = make_mesh(num_devices or self.config.num_devices,
+                               self.device)
+        self._refresh_inference()
+        return self
 
     # ------------------------------------------------------------------
     # Persistence
@@ -316,8 +348,10 @@ class Yolov4:
         Letterbox keeps the float wire (its gray padding is float).  The
         caller runs this in its producer thread: the copy to the card comes
         from pinned memory without blocking, so batch N+1's copy overlaps
-        batch N's inference.  Unlike the JAX package's, the batch is not
-        padded to a fixed size (``predict_batch`` does not pad).
+        batch N's inference.  On a mesh the batch stays on the host, and
+        ``predict_batch`` copies only this rank's rows.  Unlike the JAX
+        package's, the batch is not padded to a fixed size (``predict_batch``
+        pads only on a mesh).
         """
         import cv2
         h, w = self.img_size[:2]
@@ -331,6 +365,8 @@ class Yolov4:
             else:
                 imgs[j], t = self._preprocess_with_transform(raw)
             transforms.append(t)
+        if self._mesh is not None:
+            return imgs, transforms
         return to_device_async(imgs, self.device), transforms
 
     def _raw(self, images):
@@ -349,17 +385,29 @@ class Yolov4:
 
         The JAX package pads ragged batches to bound XLA recompiles; an
         eager forward has nothing to recompile, and padding is exact, so
-        the port does not pad.
+        the port does not pad on one device.  On a mesh (``distribute``)
+        every rank passes the same batch of b images: it is padded with
+        zero images to the least multiple of the rank count, each rank
+        copies and runs its own contiguous rows, and every rank returns the
+        whole batch's outputs, trimmed to b.
         """
         iou_t = (self.config.iou_threshold if iou_threshold is None
                  else iou_threshold)
         score_t = (self.config.score_threshold if score_threshold is None
                    else score_threshold)
-        imgs = torch.as_tensor(imgs)
-        if imgs.dtype != torch.uint8:
-            imgs = imgs.to(torch.float32)
-        imgs = imgs.to(self.device)
-        return self._infer_fn(self._folded, imgs, iou_t, score_t)
+        imgs, mesh = torch.as_tensor(imgs), self._mesh
+        if mesh is None:
+            return self._infer_fn(self._folded, _wire(imgs).to(self.device),
+                                  iou_t, score_t)
+        b = imgs.shape[0]
+        rows = -(-b // mesh.size)
+        mine = imgs[mesh.rank * rows:(mesh.rank + 1) * rows]
+        if mine.shape[0] < rows:
+            mine = torch.cat([mine, mine.new_zeros(
+                (rows - mine.shape[0], *mine.shape[1:]))])
+        out = self._infer_fn(self._folded, _wire(mine).to(self.device),
+                             iou_t, score_t)
+        return tuple(o[:b] for o in gather_rows(out, mesh))
 
     def predict_paths(self, img_paths, bs: int = 8,
                       iou_threshold: Optional[float] = None,
@@ -467,12 +515,21 @@ class Yolov4:
     def export_prediction(self, annotation_path: str, pred_folder_path: str,
                           img_folder_path: str, bs: int = 2,
                           verbose: bool = True):
+        """Per-image prediction files for ``eval_map``.  On a mesh every
+        rank makes the same ``predict_batch`` calls and rank 0 alone writes;
+        when the call returns, every file is on disk for every rank."""
+        mesh = self._mesh
+        writes = mesh is None or mesh.rank == 0
         evalmap.export_prediction(
             self.predict_batch, annotation_path, pred_folder_path,
             img_folder_path, self.img_size[:2], self.class_names, bs=bs,
-            verbose=verbose, letterbox=self.config.letterbox,
+            verbose=verbose and writes, letterbox=self.config.letterbox,
             transfer_uint8=self.config.transfer_uint8,
-            place_fn=lambda imgs: to_device_async(imgs, self.device))
+            place_fn=(None if mesh is not None else
+                      lambda imgs: to_device_async(imgs, self.device)),
+            write=writes)
+        if mesh is not None:
+            barrier(mesh)
 
     def eval_map(self, gt_folder_path: str, pred_folder_path: str,
                  temp_json_folder_path: str, output_files_path: str,
@@ -480,6 +537,11 @@ class Yolov4:
         return evalmap.eval_map(gt_folder_path, pred_folder_path,
                                 temp_json_folder_path, output_files_path,
                                 plot=plot, verbose=verbose)
+
+
+def _wire(imgs: torch.Tensor) -> torch.Tensor:
+    """A batch as ``infer_fn`` takes it: uint8 as it is, else float32."""
+    return imgs if imgs.dtype == torch.uint8 else imgs.to(torch.float32)
 
 
 def _imread(path: str):

@@ -76,7 +76,10 @@ class EvalMapCallback:
     inference weights are synced from the trainer that drives the loop
     before each evaluation.  On a mesh only rank 0 evaluates (and keeps
     ``history``); the other ranks wait for it without the process group's
-    collective timeout, however long the evaluation takes.
+    collective timeout, however long the evaluation takes.  A facade
+    sharded over the ranks (``Yolov4.distribute``) makes its weight sync
+    and predictions collectives: then every rank syncs and predicts, and
+    rank 0 alone writes the files and scores them.
     """
 
     def __init__(self, model, annotation_path: str, img_folder_path: str,
@@ -92,21 +95,34 @@ class EvalMapCallback:
     def __call__(self, trainer, entry: dict):
         epoch = entry["epoch"]
         if (epoch + 1) % self.every == 0:
-            on_rank0(getattr(trainer, "mesh", None),
-                     lambda: self._evaluate(trainer, epoch))
+            mesh = getattr(self.model, "_mesh", None)
+            if mesh is not None:
+                self._evaluate(trainer, epoch, mesh)
+            else:
+                on_rank0(getattr(trainer, "mesh", None),
+                         lambda: self._evaluate(trainer, epoch))
 
-    def _evaluate(self, trainer, epoch: int):
+    def _evaluate(self, trainer, epoch: int, mesh=None):
+        """The evaluation; with the facade's ``mesh``, every rank of it
+        calls this and rank 0 alone writes and scores."""
         # The trainer driving this loop may be a hand-built one the facade
         # never saw.
         self.model.sync_from_trainer(trainer)
         gt = os.path.join(self.work_dir, "ground_truth")
         pred = os.path.join(self.work_dir, "pred_result")
-        for d in (gt, pred):
-            os.makedirs(d, exist_ok=True)
-        self.model.export_gt(self.annotation_path, gt)
+
+        def ground_truth():
+            for d in (gt, pred):
+                os.makedirs(d, exist_ok=True)
+            self.model.export_gt(self.annotation_path, gt)
+
+        on_rank0(mesh, ground_truth)
         self.model.export_prediction(self.annotation_path, pred,
                                      self.img_folder_path,
                                      verbose=self.verbose > 1)
+        on_rank0(mesh, lambda: self._score(epoch, gt, pred))
+
+    def _score(self, epoch: int, gt: str, pred: str):
         scores = self.model.eval_map(
             gt, pred, os.path.join(self.work_dir, "json"),
             os.path.join(self.work_dir, "result"),

@@ -87,7 +87,8 @@ def export_prediction(predict_batch_fn: Callable, annotation_path: str,
                       class_names: Sequence[str], bs: int = 8,
                       verbose: bool = True, letterbox: bool = False,
                       transfer_uint8: bool = False,
-                      place_fn: Optional[Callable] = None) -> None:
+                      place_fn: Optional[Callable] = None,
+                      write: bool = True) -> None:
     """Run inference over all annotation images, write per-image pred txts
     (reference models.py:141-179) with boxes denormalised to original size.
 
@@ -104,12 +105,16 @@ def export_prediction(predict_batch_fn: Callable, annotation_path: str,
     pinned, non-blocking copy to its device), so batch N+1's copy overlaps
     batch N's inference.
 
+    write: False runs every ``predict_batch_fn`` call and writes nothing:
+    the ranks of a mesh other than rank 0, whose calls are collectives.
+
     The last batch is not padded: the JAX package pads it only to keep its
     jitted shape static, and the port's predict_batch runs any batch size.
     """
     import cv2
 
-    os.makedirs(pred_folder_path, exist_ok=True)
+    if write:
+        os.makedirs(pred_folder_path, exist_ok=True)
     with open(annotation_path) as file:
         img_paths = [os.path.join(img_folder_path, os.path.basename(l.split(" ")[0]))
                      for l in file if l.strip()]
@@ -166,6 +171,8 @@ def export_prediction(predict_batch_fn: Callable, annotation_path: str,
             progress.update(1)
         b_boxes, b_scores, b_classes, b_valid = [
             o.cpu().numpy() for o in predict_batch_fn(imgs)]
+        if not write:
+            continue
 
         for k, path in enumerate(paths):
             n = int(b_valid[k])

@@ -1,2 +1,3 @@
-from .mesh import (Mesh, init_distributed, make_mesh, on_rank0,  # noqa: F401
-                   replicate, shard_batch)
+from .mesh import (Mesh, barrier, gather_rows,  # noqa: F401
+                   init_distributed, make_mesh, on_rank0, replicate,
+                   shard_batch)

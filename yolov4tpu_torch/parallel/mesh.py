@@ -9,10 +9,13 @@ each on its own device: a ``Mesh`` is this process's view of the group
 (its rank, the world size, its device and the process group), batches are
 split into contiguous row blocks as ``P("data")`` splits them, parameters
 are replicated, and the train step makes its one all-reduce itself
-(``train._allreduce_slab``).  Only ``all_reduce``, ``broadcast`` and
-``barrier`` are used: gloo runs all three on CUDA tensors too.  What rank
-0 alone does between steps (an evaluation, a checkpoint) runs through
-``on_rank0``, while the other ranks wait without the steps' timeout.
+(``train._allreduce_slab``).  Sharded inference (``Yolov4.distribute``)
+runs each rank's rows and collects every rank's detections with one
+``all_gather`` (``gather_rows``).  Only ``all_reduce``, ``broadcast``,
+``barrier`` and ``all_gather`` are used: gloo runs them on CUDA tensors
+too.  What rank 0 alone does between steps (an evaluation, a checkpoint)
+runs through ``on_rank0``, while the other ranks wait without the steps'
+timeout.
 
 Recipe, one process per card::
 
@@ -241,6 +244,13 @@ def on_rank0(mesh: Optional[Mesh], fn):
     return result
 
 
+def barrier(mesh: Mesh):
+    """Every rank of ``mesh`` waits here for the others, within the process
+    group's collective timeout; a one-rank mesh makes no call."""
+    if mesh.size > 1:
+        dist.barrier(group=mesh.group)
+
+
 def shard_batch(batch, mesh: Mesh, batch_axis: int = 0):
     """This rank's contiguous rows of a global host batch (dicts and lists
     of arrays), as ``P("data")`` splits axis ``batch_axis`` (axis 1 for the
@@ -263,20 +273,77 @@ def shard_batch(batch, mesh: Mesh, batch_axis: int = 0):
     return tree_map(rows, batch)
 
 
+def _as_tensor(x) -> torch.Tensor:
+    """A leaf as a tensor; a numpy array as a tensor over its memory, so
+    that writing the tensor writes the array."""
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+
+
+# Byte offsets of the packed tensors are multiples of this, so that every
+# part can be viewed back as its own dtype.
+_ALIGN = 16
+
+
+def _spans(tensors) -> list:
+    """(offset, bytes) of each tensor in ``_pack_bytes``'s buffer."""
+    spans, offset = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        spans.append((offset, n))
+        offset += -(-n // _ALIGN) * _ALIGN
+    return spans
+
+
+def _pack_bytes(tensors, device) -> torch.Tensor:
+    """Every tensor's bytes, whatever its dtype and device, in one uint8
+    buffer on ``device`` (the layout of ``_spans``)."""
+    spans = _spans(tensors)
+    total = spans[-1][0] + spans[-1][1] if spans else 0
+    flat = torch.empty(total, dtype=torch.uint8, device=device)
+    for t, (offset, n) in zip(tensors, spans):
+        flat[offset:offset + n].copy_(t.reshape(-1).view(torch.uint8))
+    return flat
+
+
+def _unpack_bytes(flat, like) -> list:
+    """Views of ``flat`` (``_pack_bytes``'s layout) shaped and typed like
+    the tensors of ``like``."""
+    return [flat[offset:offset + n].view(t.dtype).view(t.shape)
+            for t, (offset, n) in zip(like, _spans(like))]
+
+
 @torch.no_grad()
 def replicate(tree, mesh: Mesh):
-    """Give every rank rank 0's values of ``tree`` (float32 or narrower
-    floating tensors on the mesh's device), in place: one broadcast of one
-    flat float32 buffer.
-    Returns ``tree``.  A one-rank mesh has nothing to copy."""
+    """Give every rank rank 0's values of ``tree``, bit for bit and in
+    place: one broadcast of every leaf's bytes in one buffer on the mesh's
+    device.  Leaves are tensors of any dtype on any device (a folded tree's
+    int8 kernels, float32 scales and bfloat16 weights, CPU params) or numpy
+    arrays (calibration scales), written through.  Returns ``tree``.  A
+    one-rank mesh has nothing to copy and makes no call."""
     from ..train import leaves
-    tensors = leaves(tree)
+    tensors = [_as_tensor(x) for x in leaves(tree)]
     if mesh.size == 1 or not tensors:
         return tree
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    flat = _pack_bytes(tensors, mesh.device)
     dist.broadcast(flat, 0, group=mesh.group)
-    offset = 0
-    for t in tensors:
-        t.copy_(flat[offset:offset + t.numel()].view(t.shape))
-        offset += t.numel()
+    for t, part in zip(tensors, _unpack_bytes(flat, tensors)):
+        t.copy_(part)
     return tree
+
+
+@torch.no_grad()
+def gather_rows(tensors, mesh: Mesh) -> list:
+    """Every rank's rows of ``tensors`` concatenated in rank order, on the
+    mesh's device: tensor i of the result holds rank 0's tensor i, then
+    rank 1's, and so on.  Each rank passes tensors of the same shapes and
+    dtypes.  One ``all_gather`` of one buffer holding all of them (in
+    ``_pack_bytes``'s layout).  A one-rank mesh returns its input and makes
+    no call."""
+    tensors = list(tensors)
+    if mesh.size == 1:
+        return tensors
+    flat = _pack_bytes(tensors, mesh.device)
+    parts = [torch.empty_like(flat) for _ in range(mesh.size)]
+    dist.all_gather(parts, flat, group=mesh.group)
+    per_rank = [_unpack_bytes(p, tensors) for p in parts]
+    return [torch.cat(rows) for rows in zip(*per_rank)]

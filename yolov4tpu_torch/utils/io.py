@@ -8,6 +8,7 @@ Annotation line format (reference README.md:84-93):
 from __future__ import annotations
 
 import math
+import numbers
 from typing import List, Optional
 
 import numpy as np
@@ -20,7 +21,8 @@ def read_annotation_lines(annotation_path: str,
     split (reference utils.py:80-86: sklearn's ``train_test_split`` with
     seed 5566, reproduced here in numpy: a ``RandomState(seed)``
     permutation whose first ``ceil(test_size * n)`` indices are the
-    validation part, or ``test_size`` of them when it is an int).
+    validation part, or ``test_size`` of them when it is an integer, numpy's
+    included).
 
     ``shard=(rank, size)`` keeps every size-th line from ``rank`` on: the
     per-host data recipe, where each rank feeds its own generator.
@@ -39,7 +41,7 @@ def read_annotation_lines(annotation_path: str,
 
     if test_size:
         n = len(lines)
-        n_test = (test_size if isinstance(test_size, int)
+        n_test = (int(test_size) if isinstance(test_size, numbers.Integral)
                   else math.ceil(test_size * n))
         if not 0 < n_test < n:
             raise ValueError(f"test_size={test_size} leaves an empty part "
