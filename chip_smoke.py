@@ -153,12 +153,26 @@ exits non-zero without printing a result:
      rank 0 alone, on disk for both ranks when it returns, its files within
      1e-3 of the single-device facade's; (c) a 40-frame 640x360 mp4v clip through the video tool's
      command line (b8), its frames read back and counted, one
-     ``suppress_rank`` launch a batch, and frames/s.
+     ``suppress_rank`` launch a batch, and frames/s; (d) spatial-sharded
+     inference (``distribute(axis="spatial")``, the images' rows over the
+     ranks, halo rows exchanged by ``all_gather``): NCCL at world size 1
+     bit-equal to the plain facade without the s2d stem, no exchange, one
+     ``suppress_rank`` launch a call; then two gloo ranks sharing the
+     card, each a process of this script (``--dist-worker RANK DIR
+     spatial``), rank 1's params offset: float32 (TF32 off) b1 and b2,
+     "pallas" b2 and int8 b2 on every rank within 1e-3 per box of this
+     process's single-device facades without the s2d stem (float32 b2 also
+     of the default facade) with equal classes and counts, the bf16 raw
+     grids' rel-RMS against the float32 grids within twice the
+     single-device bf16 grids', 47 halo exchanges and one gather a forward
+     on every rank and 112 rows across the boundary, one NMS kernel launch
+     a call, and the ms a call at b1 and b8 bf16 with the exchanges' share
+     beside the single-device facade's.
 
 Each phase prints its seconds.  The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times (``device_ms`` from CUDA-graph
-replays beside the eager ``ms`` for the NMS kernels) and bound; the last
-line is
+replays beside the eager ``ms`` for the NMS kernels) and bound, and phase
+10d's halo exchanges; the last line is
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without it the script exits
 with status 1 at once.
 """
@@ -3320,25 +3334,377 @@ def video_phase(torch, busy, card, frames: int = 40, size=(640, 360)):
     return {"suppress_rank": launches, "frames_s": rate, "codec": codec}
 
 
+# ---------------------------------------------------------------------------
+# Spatial-sharded inference: NCCL at world size 1, two gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+def spatial_nccl_phase(torch, busy, card):
+    """Phase 10d (a), NCCL at world size 1 in this process:
+    ``distribute(1, axis="spatial")`` (float32, TF32 off) bit-equal to a
+    plain facade with the s2d stem off (the axis turns it off, as the JAX
+    package's does) at b8 and b1, with no halo exchange and one
+    ``suppress_rank`` launch a call.  Returns the launches."""
+    from yolov4tpu_torch.parallel import spatial
+
+    u8 = scene(4, 8)
+    plain = busy_model(busy, compute_dtype="float32", s2d_stem=False)
+    meshed = busy_model(busy, compute_dtype="float32")
+    check(meshed.distribute(1, axis="spatial") is meshed
+          and meshed._mesh.size == 1 and meshed._mesh.device.type == "cuda"
+          and meshed.config.s2d_stem, f"distribute(1, spatial): "
+          f"{meshed._mesh}")
+    spatial.HALO_EXCHANGES = 0
+    launches = 0
+    for b in (8, 1):
+        got, n = counted_predict(torch, "LAUNCHES", meshed, u8[:b])
+        check(n == 1, f"spatial b{b}: LAUNCHES {n} in one predict_batch")
+        launches += n
+        want = plain.predict_batch(u8[:b])
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"spatial world size 1 b{b} != the plain facade")
+        log(f"10d NCCL world size 1, spatial b{b} float32: bit-equal to the "
+            f"plain facade without the s2d stem, valid {got[3].tolist()}, "
+            f"one suppress_rank launch")
+    check(spatial.HALO_EXCHANGES == 0,
+          f"{spatial.HALO_EXCHANGES} halo exchanges on one rank")
+    del plain, meshed
+    torch.cuda.empty_cache()
+    return launches
+
+
+SPATIAL_FORWARD_EXCHANGES = 47    # 37 3x3 convs, 7 downsamples, 3 pools
+SPATIAL_BOUNDARY_ROWS = 112       # across the one boundary of two ranks
+SPATIAL_BATCHES = (1, 2)
+
+
+def spatial_counts(torch, nms_cuda, spatial, gathers, counter, fn):
+    """``fn()`` with the launches of ``nms_cuda``'s ``counter``, the
+    ``all_gather`` calls and the halo counters zeroed just before and read
+    just after: (outputs, counts)."""
+    setattr(nms_cuda, counter, 0)
+    gathers[0] = 0
+    spatial.HALO_EXCHANGES = spatial.HALO_ROWS = spatial.HALO_BYTES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"launches": getattr(nms_cuda, counter),
+                 "all_gather": gathers[0],
+                 "exchanges": spatial.HALO_EXCHANGES,
+                 "rows": spatial.HALO_ROWS, "bytes": spatial.HALO_BYTES}
+
+
+def spatial_times(torch, model, imgs, spatial=None, iters: int = 10):
+    """Host-clock ms of ``iters`` ``predict_batch`` calls (warmed up, the
+    card drained after each).  With ``spatial`` (the module), then the ms
+    of the halo exchanges and the grid gather in ``iters`` more calls, each
+    drained before and after (host clock): (call ms, exchange ms, gather
+    ms, the drained calls' ms)."""
+    for _ in range(2):
+        model.predict_batch(imgs)
+    torch.cuda.synchronize()
+    calls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        model.predict_batch(imgs)
+        torch.cuda.synchronize()
+        calls.append(1e3 * (time.perf_counter() - t0))
+    if spatial is None:
+        return calls, None, None, None
+    spent = {"exchange": 0.0, "gather_spans": 0.0}
+    real = {name: getattr(spatial, name) for name in spent}
+
+    def drained(name):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    drained_calls = []
+    for name in spent:
+        setattr(spatial, name, drained(name))
+    try:
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            model.predict_batch(imgs)
+            torch.cuda.synchronize()
+            drained_calls.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        for name, fn in real.items():
+            setattr(spatial, name, fn)
+    return (calls, spent["exchange"] / iters, spent["gather_spans"] / iters,
+            drained_calls)
+
+
+def spatial_worker(rank: int, work: pathlib.Path) -> int:
+    """One rank of phase 10d (b) (``python3 chip_smoke.py --dist-worker RANK
+    DIR spatial``): joins a gloo group of two ranks on the card through a
+    FileStore in DIR, builds facades on phase 3's weights (rank 1 adds 0.25
+    to every parameter first) and ``distribute(2, axis="spatial")``:
+    float32 (TF32 off) ``predict_batch`` at b1 and b2, then ``quantize`` on
+    16 scene images and int8 at b2; float32 "pallas" at b2; bf16 raw grids
+    of b2 and ``predict_batch`` at b8, then the ms a call at b1 and b8 and
+    the share of it in the halo exchanges and the grid gather.  Writes
+    DIR/out<RANK>.npz (the outputs) and DIR/rank<RANK>.json (each call's
+    launches, all_gathers, exchanges, halo rows and bytes, and the
+    times)."""
+    import torch
+    import torch.distributed as dist
+
+    from yolov4tpu_torch import train
+    from yolov4tpu_torch.ops import nms_cuda
+    from yolov4tpu_torch.parallel import init_distributed, spatial
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    info = init_distributed(f"file://{work / 'store'}", 2, rank,
+                            backend="gloo")
+    gathers = [0]
+    real_all_gather = dist.all_gather
+
+    def counted_all_gather(*args, **kwargs):
+        gathers[0] += 1
+        return real_all_gather(*args, **kwargs)
+
+    dist.all_gather = counted_all_gather
+    u8 = scene(4, 8)
+    outs, stats = {}, {}
+
+    def facade(**kw):
+        model = busy_model(SCRATCH / "busy80.weights", **kw)
+        if rank:
+            model.sync_params(train.tree_map(lambda t: t + 0.25,
+                                             model.params), model.state)
+        return model.distribute(2, axis="spatial")
+
+    def record(key, counter, fn):
+        out, stats[key] = spatial_counts(torch, nms_cuda, spatial, gathers,
+                                         counter, fn)
+        for i, o in enumerate(out):
+            outs[f"{key}/{i}"] = o.float().cpu().numpy()
+
+    model = facade(compute_dtype="float32")
+    for b in SPATIAL_BATCHES:
+        record(f"float32/b{b}", "LAUNCHES",
+               lambda: model.predict_batch(u8[:b]))
+    model.quantize(calib_imgs=scene(5, 16).astype(np.float32) / 255.0)
+    record("int8/b2", "LAUNCHES", lambda: model.predict_batch(u8[:2]))
+    model = facade(compute_dtype="float32", nms_impl="pallas")
+    record("pallas/b2", "SUPPRESS_LAUNCHES",
+           lambda: model.predict_batch(u8[:2]))
+    model = facade()
+    images = torch.from_numpy(u8[:2]).cuda().float() / 255.0
+    record("bfloat16/raw", "LAUNCHES", lambda: model._raw(images))
+    record("bfloat16/b8", "LAUNCHES", lambda: model.predict_batch(u8))
+    times = {}
+    for b in (1, 8):
+        calls, ex, ga, drained = spatial_times(torch, model, u8[:b], spatial)
+        times[f"b{b}"] = {"ms": calls, "exchange_ms": ex, "gather_ms": ga,
+                          "drained_ms": drained}
+    np.savez(work / f"out{rank}.npz", **outs)
+    (work / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "info": info, "stats": stats, "times": times}))
+    dist.destroy_process_group()
+    return 0
+
+
+def grid_rel_rms(torch, got, want) -> list:
+    """rel-RMS of each raw grid of ``got`` against ``want``."""
+    return [rel_rms(torch.as_tensor(g).cuda(), w) for g, w in zip(got, want)]
+
+
+def spatial_gloo_phase(torch, busy, card):
+    """Phase 10d (b): two gloo ranks sharing the card, each a worker process
+    (``spatial_worker``), held to this process's single-device facades of
+    the same configuration, the s2d stem off as the spatial axis runs it
+    (the stem's two forms round differently, which an int8 requantization
+    can turn into another detection count).  float32 (TF32 off): every
+    rank's detections at b1 and b2 within 1e-3 per box, classes and counts
+    equal, and b2 also against the default facade (s2d stem on);
+    "pallas" likewise, one ``suppress`` launch a call; int8 (``quantize``
+    after ``distribute``) within 1e-3 per box of the single-device int8
+    facade.  bf16: the ranks' raw grids' rel-RMS against the single-device
+    float32 grids at most twice the single-device bf16 grids'.  Every
+    forward 47 halo exchanges and one gather on every rank, 112 halo rows
+    across the boundary; the ms a call at b1 and b8 bf16 beside the
+    single-device facade's.  Returns the launches and the halo counts."""
+    import shutil
+
+    work = SCRATCH / "spatial"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker",
+         str(r), str(work), "spatial"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"spatial rank {r} failed "
+              f"(exit {p.returncode}):\n{text[-4000:]}")
+    workers_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    outs = []
+    for r in range(2):
+        with np.load(work / f"out{r}.npz") as f:
+            outs.append(dict(f))
+    for rk in ranks:
+        check(rk["info"]["backend"] == "gloo"
+              and rk["info"]["num_processes"] == 2, f"rank {rk['rank']}: "
+              f"{rk['info']}")
+        for key, st in rk["stats"].items():
+            check(st["exchanges"] == SPATIAL_FORWARD_EXCHANGES
+                  and st["all_gather"] == SPATIAL_FORWARD_EXCHANGES + 1,
+                  f"rank {rk['rank']} {key}: {st['exchanges']} halo "
+                  f"exchanges and {st['all_gather']} all_gathers, want "
+                  f"{SPATIAL_FORWARD_EXCHANGES} and one gather")
+            want = 0 if key == "bfloat16/raw" else 1
+            check(st["launches"] == want, f"rank {rk['rank']} {key}: "
+                  f"{st['launches']} NMS kernel launches, want {want}")
+    for key in ranks[0]["stats"]:
+        rows = sum(rk["stats"][key]["rows"] for rk in ranks)
+        check(rows == SPATIAL_BOUNDARY_ROWS, f"{key}: {rows} halo rows "
+              f"across the boundary, want {SPATIAL_BOUNDARY_ROWS}")
+
+    u8 = scene(4, 8)
+    worst = {}
+
+    def hold(label, key, want):
+        for rk, out in zip(ranks, outs):
+            got = [torch.from_numpy(out[f"{key}/{i}"]).cuda()
+                   for i in range(4)]
+            worst[label] = max(worst.get(label, 0.0), agree(
+                torch, got, want, f"10d rank {rk['rank']} {key}"))
+
+    calib = scene(5, 16).astype(np.float32) / 255.0
+    plain = busy_model(busy, compute_dtype="float32")
+    hold("float32, s2d stem on", "float32/b2", plain.predict_batch(u8[:2]))
+    # Information only: int8 against the default facade, whose stem's s2d
+    # form rounds otherwise before the first requantization.
+    plain.quantize(calib_imgs=calib)
+    want = plain.predict_batch(u8[:2])
+    s2d_int8 = [sum(pairs_within(numpy_outputs(
+        [torch.from_numpy(out[f"int8/b2/{i}"]) for i in range(4)], j),
+        numpy_outputs(want, j), 1e-3) for j in range(2)) for out in outs]
+    plain = busy_model(busy, compute_dtype="float32", s2d_stem=False)
+    for b in SPATIAL_BATCHES:
+        hold("float32", f"float32/b{b}", plain.predict_batch(u8[:b]))
+    f32_grids = plain._raw(torch.from_numpy(u8[:2]).cuda().float() / 255.0)
+    plain.quantize(calib_imgs=calib)
+    hold("int8", "int8/b2", plain.predict_batch(u8[:2]))
+    plain = busy_model(busy, compute_dtype="float32", nms_impl="pallas",
+                       s2d_stem=False)
+    hold("pallas", "pallas/b2", plain.predict_batch(u8[:2]))
+    plain = busy_model(busy, s2d_stem=False)
+    bf16_grids = plain._raw(torch.from_numpy(u8[:2]).cuda().float() / 255.0)
+    single = grid_rel_rms(torch, [g.float() for g in bf16_grids], f32_grids)
+    sharded = [grid_rel_rms(torch, [out[f"bfloat16/raw/{i}"]
+                                    for i in range(3)], f32_grids)
+               for out in outs]
+    for r, rr in enumerate(sharded):
+        for i, (s, w) in enumerate(zip(rr, single)):
+            check(s <= 2 * w, f"rank {r} bf16 grid {i}: rel-RMS {s:.4g} "
+                  f"against float32, over twice the single-device {w:.4g}")
+    single_ms = {f"b{b}": spatial_times(torch, plain, u8[:b])[0]
+                 for b in (1, 8)}
+    del plain, f32_grids, bf16_grids
+    torch.cuda.empty_cache()
+
+    log(f"10d two gloo ranks on one card (rank 1's params offset before "
+        f"distribute(2, axis='spatial')), against the single-device "
+        f"facades without the s2d stem: float32 b1, b2 within "
+        f"{worst['float32']:.3g}, int8 b2 within {worst['int8']:.3g}, "
+        f"pallas b2 within {worst['pallas']:.3g}; float32 b2 against the "
+        f"default facade (s2d stem on) within "
+        f"{worst['float32, s2d stem on']:.3g} (limit 1e-3, classes and "
+        f"counts equal); one NMS kernel launch a call on every rank; "
+        f"workers {workers_s:.1f} s ({card})")
+    log(f"10d int8 b2 against the default int8 facade (s2d stem on), "
+        f"information: {sum(s2d_int8)} of {2 * len(outs)} rank-images "
+        f"within 1e-3 with equal counts")
+    log(f"10d bf16 raw grids b2, rel-RMS against the single-device float32 "
+        f"grids: single-device bf16 {', '.join(f'{v:.4g}' for v in single)}; "
+        + "; ".join(f"rank {r} {', '.join(f'{v:.4g}' for v in rr)}"
+                    for r, rr in enumerate(sharded)) + " (limit 2x)")
+    st = [rk["stats"]["bfloat16/b8"] for rk in ranks]
+    log(f"10d halo a forward: {SPATIAL_FORWARD_EXCHANGES} exchanges (one "
+        f"all_gather each) and one grid gather on every rank; rows received "
+        f"{st[0]['rows']} + {st[1]['rows']} = "
+        f"{st[0]['rows'] + st[1]['rows']}; bytes received at b8 bf16 "
+        f"{st[0]['bytes']} + {st[1]['bytes']} = "
+        f"{st[0]['bytes'] + st[1]['bytes']}")
+    for b in ("b1", "b8"):
+        line = []
+        for rk in ranks:
+            t = rk["times"][b]
+            drained = statistics.median(t["drained_ms"])
+            line.append(
+                f"rank {rk['rank']} median {statistics.median(t['ms']):.2f} "
+                f"ms (range {min(t['ms']):.2f}-{max(t['ms']):.2f}), "
+                f"exchanges {t['exchange_ms']:.2f} ms + gather "
+                f"{t['gather_ms']:.2f} ms of a drained "
+                f"{drained:.2f} ms call "
+                f"({(t['exchange_ms'] + t['gather_ms']) / drained:.1%})")
+        s = single_ms[b]
+        log(f"10d predict_batch {b} bf16 uint8, host clock, card drained: "
+            + "; ".join(line) + f"; single-device facade median "
+            f"{statistics.median(s):.2f} ms (range {min(s):.2f}-"
+            f"{max(s):.2f}); gloo between two processes on one card, "
+            f"staged through the host: not a scaling figure ({card})")
+    return {"suppress_rank": sum(st["launches"] for rk in ranks
+                                 for k, st in rk["stats"].items()
+                                 if not k.startswith("pallas")),
+            "suppress": sum(rk["stats"]["pallas/b2"]["launches"]
+                            for rk in ranks),
+            "halo_exchanges": sum(st["exchanges"] for rk in ranks
+                                  for st in rk["stats"].values()),
+            "rows": st[0]["rows"] + st[1]["rows"],
+            "bytes_b8": st[0]["bytes"] + st[1]["bytes"],
+            "ms": {b: {"spatial": [statistics.median(rk["times"][b]["ms"])
+                                   for rk in ranks],
+                       "single": statistics.median(single_ms[b])}
+                   for b in ("b1", "b8")}}
+
+
 def distributed_phase(torch, busy, folder, lines, card):
     """Phase 10: distributed inference (10a NCCL at world size 1, 10b two
-    gloo ranks on one card) and the video tool (10c); this process's group
-    destroyed after 10a."""
+    gloo ranks on one card), the video tool (10c) and spatial-sharded
+    inference (10d: its NCCL part in 10a's group, which is destroyed
+    after it)."""
     import torch.distributed as dist
     t = time.perf_counter()
     launches, rates = nccl_inference_phase(torch, busy, card)
-    dist.destroy_process_group()
     log(f"phase 10a: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    spatial_one = spatial_nccl_phase(torch, busy, card)
+    dist.destroy_process_group()
+    t_spatial = time.perf_counter() - t
     t = time.perf_counter()
     gloo = gloo_inference_phase(torch, busy, folder, lines, card)
     log(f"phase 10b: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     vid = video_phase(torch, busy, card)
     log(f"phase 10c: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    spatial = spatial_gloo_phase(torch, busy, card)
+    log(f"phase 10d: {t_spatial + time.perf_counter() - t:.1f} s")
     return {"suppress_rank": (launches["LAUNCHES"] + gloo["suppress_rank"]
-                              + vid["suppress_rank"]),
-            "suppress": launches["SUPPRESS_LAUNCHES"], "rates": rates,
-            "gather_ms": gloo["gather_ms"], "frames_s": vid["frames_s"]}
+                              + vid["suppress_rank"] + spatial_one
+                              + spatial["suppress_rank"]),
+            "suppress": launches["SUPPRESS_LAUNCHES"] + spatial["suppress"],
+            "rates": rates, "gather_ms": gloo["gather_ms"],
+            "frames_s": vid["frames_s"], "spatial": spatial}
 
 
 def main() -> int:
@@ -3602,7 +3968,16 @@ def main() -> int:
                 # Device times per b8 bf16 step at the multi-scale range's
                 # ends (phase 8f); the keys above are at 416^2.
                 "per_step_by_side": ingested["wgrad_by_size"]}]
-    print(json.dumps({"kernels": kernels}))
+    spatial = served10["spatial"]
+    # Phase 10d's halo exchanges (plain torch copies and all_gather, no
+    # kernel of their own): both ranks' count, per forward, and the rows
+    # and bytes (b8 bf16) received across the boundary a forward.
+    print(json.dumps({"kernels": kernels, "halo_exchanges": {
+        "count": spatial["halo_exchanges"],
+        "per_forward": SPATIAL_FORWARD_EXCHANGES,
+        "rows_per_forward": spatial["rows"],
+        "bytes_per_forward_b8_bf16": spatial["bytes_b8"],
+        "ms_per_call": spatial["ms"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3613,5 +3988,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(int(sys.argv[2]), pathlib.Path(sys.argv[3])))
     if sys.argv[1:2] == ["--dist-worker"]:
-        sys.exit(dist_worker(int(sys.argv[2]), pathlib.Path(sys.argv[3])))
+        worker = spatial_worker if sys.argv[4:5] == ["spatial"] else \
+            dist_worker
+        sys.exit(worker(int(sys.argv[2]), pathlib.Path(sys.argv[3])))
     sys.exit(main())

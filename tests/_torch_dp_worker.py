@@ -18,7 +18,13 @@ over the ranks (``Yolov4.distribute``; rank 1's params offset first) and
 records its ``predict_batch`` outputs, float and int8, and how many
 ``all_gather`` calls each made, exports prediction files into
 ``<work dir>/<scenario name>/pred_r<rank>``, then runs ``fit`` with
-``MetricsLogger`` and ``EvalMapCallback`` on the distributed facade.
+``MetricsLogger`` and ``EvalMapCallback`` on the distributed facade.  A
+"spatial" scenario shards a facade's inference on the images' rows
+(``distribute(axis="spatial")``; rank 1's params offset first) and
+records its raw grids and ``predict_batch`` outputs, with ``"pallas"`` NMS
+and int8, how many ``all_gather`` calls and halo exchanges each made and
+how many halo rows it received, then exports prediction files as the
+"distribute" scenario does.
 
 Imports the port only (no JAX, nothing of the tests' conftest), so the
 parent test's JAX state never reaches it.
@@ -298,6 +304,62 @@ def main():
             out[f"{name}_fit/maps"] = np.asarray(
                 [h["mAP"] for h in ev.history])
             record(f"{name}_fit", model.params, model.state)
+        elif kind == "spatial":
+            from yolov4tpu_torch.api import Yolov4
+            from yolov4tpu_torch.parallel import spatial
+
+            def facade(impl):
+                model = Yolov4(None, sc["classes"], device="cpu",
+                               config=cfg.replace(nms_impl=impl))
+                params, state = fresh()
+                if rank:
+                    params = train.tree_map(lambda t: t + sc["offset"],
+                                            params)
+                model.sync_params(params, state)
+                assert model.distribute(world, axis="spatial") is model
+                return model
+
+            def counted(prefix, call):
+                before = (counts["all_gather"], spatial.HALO_EXCHANGES,
+                          spatial.HALO_ROWS)
+                outs = call()
+                for key, b, a in zip(("all_gather", "exchanges", "rows"),
+                                     before, (counts["all_gather"],
+                                              spatial.HALO_EXCHANGES,
+                                              spatial.HALO_ROWS)):
+                    out[f"{prefix}/{key}"] = np.asarray(a - b)
+                for i, o in enumerate(outs):
+                    out[f"{prefix}/{i}"] = o.numpy()
+
+            model = facade("fast")
+            for b in sc.get("raw", []):
+                counted(f"{name}/raw/{b}", lambda: model._raw(
+                    torch.from_numpy(inputs[b])))
+            for b in sc["batches"]:
+                counted(f"{name}/{b}", lambda: model.predict_batch(inputs[b]))
+            if sc.get("pallas"):
+                pallas = facade("pallas")
+                for b in sc["pallas"]:
+                    counted(f"{name}_pallas/{b}",
+                            lambda: pallas.predict_batch(inputs[b]))
+            if sc.get("int8"):
+                model.quantize(calib_imgs=inputs[sc["calib"]])
+                out[f"{name}_int8/scales"] = np.concatenate(
+                    [model._act_scales[k] for k in sorted(model._act_scales)])
+                for b in sc["int8"]:
+                    counted(f"{name}_int8/{b}",
+                            lambda: model.predict_batch(inputs[b]))
+                model.dequantize()
+            if sc.get("annotation"):
+                before = counts["all_gather"]
+                model.export_prediction(sc["annotation"],
+                                        str(work / name / f"pred_r{rank}"),
+                                        sc["folder"], bs=sc["bs"],
+                                        verbose=False)
+                out[f"{name}/export_all_gather"] = np.asarray(
+                    counts["all_gather"] - before)
+                out[f"{name}/rank0_files"] = np.asarray(sorted(
+                    p.name for p in (work / name / "pred_r0").iterdir()))
         else:
             raise ValueError(f"unknown scenario kind {kind!r}")
         out[f"{name}/seconds"] = np.asarray(time.perf_counter() - t0)

@@ -2,17 +2,21 @@
 
   - at world size 1 (a one-rank gloo group, destroyed after the test) the
     distributed facade equals the plain one bit for bit, float and int8,
-    and makes no collective;
+    and makes no collective; on the spatial axis it equals the plain
+    facade with the s2d stem off (the axis turns it off, as the JAX
+    package's does), bit for bit, and makes no halo exchange;
   - an ``axis`` outside batch and spatial raises ``ValueError`` with the
-    JAX package's message, ``"spatial"`` raises ``NotImplementedError``
-    naming its ROADMAP item, and a mesh needs a process group of the size
-    asked for;
+    JAX package's message, either axis without a process group raises the
+    same ``RuntimeError``, a mesh needs a process group of the size asked
+    for, and ``distribute`` takes the JAX package's parameters;
   - ``parallel.mesh``'s byte packing carries tensors of every dtype, views
     and numpy arrays bit for bit: ``replicate`` writes rank 0's bytes into
     every leaf in place, and ``gather_rows`` concatenates the ranks' rows
     in rank order, each through one collective (the collective faked with
     the bytes a second rank would send).
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from yolov4tpu import api as japi
 from yolov4tpu_torch import api as tapi
 from yolov4tpu_torch.config import YoloConfig
 from yolov4tpu_torch.parallel import mesh as tmesh
+from yolov4tpu_torch.parallel import spatial
 from yolov4tpu_torch.train import leaves
 
 C = 3
@@ -88,6 +93,46 @@ def test_world_size_one_equals_the_plain_facade(no_cluster, facades):
         meshed._mesh = None
 
 
+def test_spatial_world_size_one_equals_the_plain_facade(no_cluster, facades,
+                                                        tiny_classes):
+    """distribute(1, axis="spatial") runs the forward with the s2d stem off
+    and no exchange: bit-equal to a plain facade without the stem, float
+    (float and uint8 input), int8 and the raw grids; config unchanged."""
+    params, state, _ = port_calibrated(C)
+    plain = tapi.Yolov4(None, tiny_classes, device="cpu",
+                        config=facades[0].config.replace(s2d_stem=False))
+    plain.sync_params(params, state)
+    meshed = facades[1]
+    tmesh.init_distributed(num_processes=1, backend="gloo")
+    assert meshed.distribute(1, axis="spatial") is meshed
+    assert meshed.config.s2d_stem and meshed._axis == "spatial"
+    _forbid(no_cluster, "broadcast", "all_gather", "barrier")
+    no_cluster.setattr(spatial, "HALO_EXCHANGES", 0)
+    imgs = images(5, 3).astype(np.float32) / 255.0
+    try:
+        for wire in (imgs, (imgs * 255).round().astype(np.uint8)):
+            for a, b in zip(meshed.predict_batch(wire),
+                            plain.predict_batch(wire)):
+                assert torch.equal(a, b)
+        x = torch.from_numpy(imgs)
+        for a, b in zip(meshed._raw(x), plain._raw(x)):
+            assert torch.equal(a, b)
+        calib = images(0, 2).astype(np.float32) / 255.0
+        for m in (plain, meshed):
+            m.quantize(calib_imgs=calib)
+        for a, b in zip(meshed.predict_batch(imgs),
+                        plain.predict_batch(imgs)):
+            assert torch.equal(a, b)
+        with pytest.raises(ValueError, match="64 rows"):
+            meshed.predict_batch(images(5, 1, 96))
+    finally:
+        for m in (plain, meshed):
+            m.dequantize()
+        meshed._mesh, meshed._axis = None, "batch"
+        meshed._refresh_inference()
+    assert spatial.HALO_EXCHANGES == 0
+
+
 def test_distribute_axis_and_mesh_errors(no_cluster, facades):
     model = facades[0]
     # The JAX method checks the axis before it reads anything of its
@@ -97,15 +142,16 @@ def test_distribute_axis_and_mesh_errors(no_cluster, facades):
     with pytest.raises(ValueError) as got:
         model.distribute(axis="pipeline")
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 14c"):
-        model.distribute(axis="spatial")
-    with pytest.raises(RuntimeError, match="init_distributed"):
-        model.distribute()
+    for axis in ("batch", "spatial"):
+        with pytest.raises(RuntimeError, match="init_distributed"):
+            model.distribute(axis=axis)
     tmesh.init_distributed(num_processes=1, backend="gloo")
-    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
-        model.distribute(2)
-    assert model._mesh is None
+    for axis in ("batch", "spatial"):
+        with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+            model.distribute(2, axis=axis)
+    assert model._mesh is None and model._axis == "batch"
+    want = list(inspect.signature(japi.Yolov4.distribute).parameters)
+    assert list(inspect.signature(tapi.Yolov4.distribute).parameters) == want
 
 
 def _tree(seed: int):

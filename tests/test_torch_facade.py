@@ -1,8 +1,5 @@
-"""The port's ``Yolov4`` facade has every method of the JAX package's:
-the options not ported yet (``distribute(axis="spatial")``) raise
-``NotImplementedError`` naming their item in ``ROADMAP.md`` (not
-``AttributeError``), and the methods take the JAX signatures; the
-ported ``save_model`` / ``load_model`` round-trip the weights exactly
+"""The port's ``Yolov4`` facade: the ported ``save_model`` /
+``load_model`` take the JAX signatures and round-trip the weights exactly
 (``quantize`` / ``dequantize``: test_torch_quantize_facade.py).
 """
 
@@ -12,42 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import IMG, SHALLOW, images
+from _torch_parity import IMG, images
 from yolov4tpu import api as japi
 from yolov4tpu_torch import api as tapi
 from yolov4tpu_torch.config import YoloConfig
 from yolov4tpu_torch.weights import force_busy_heads
-
-# method -> (arguments of the call, the ROADMAP.md item its message names)
-STUBS = {
-    "distribute": ((None, "spatial"), "item 14"),
-}
-
-
-@pytest.fixture(scope="module")
-def model(tiny_classes):
-    return tapi.Yolov4(None, tiny_classes, device="cpu",
-                       config=YoloConfig(img_size=(IMG, IMG, 3),
-                                         csp_repeats=SHALLOW))
-
-
-@pytest.mark.parametrize("name", sorted(STUBS))
-def test_unported_method_raises_naming_its_item(model, name):
-    args, item = STUBS[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue A {item}"):
-        getattr(model, name)(*args)
-    # The stub takes the JAX package's parameters, in the same order.
-    want = list(inspect.signature(getattr(japi.Yolov4, name)).parameters)
-    got = list(inspect.signature(getattr(tapi.Yolov4, name)).parameters)
-    assert got == want
-
-
-def test_stub_list_follows_the_reference():
-    """Every stubbed name is a method of the JAX ``Yolov4``, so the list
-    shrinks as the reference's surface is ported, never drifts from it."""
-    for name in STUBS:
-        assert callable(getattr(japi.Yolov4, name, None)), name
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,7 @@ def test_port_imports_nothing_of_jax():
             "yolov4tpu_torch.callbacks, yolov4tpu_torch.models.quantize, "
             "yolov4tpu_torch.serving, yolov4tpu_torch.native, "
             "yolov4tpu_torch.parallel, yolov4tpu_torch.parallel.mesh, "
+            "yolov4tpu_torch.parallel.spatial, "
             "yolov4tpu_torch.utils.metrics, yolov4tpu_torch.utils.profiling, "
             "yolov4tpu_torch.tools.video\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -8,8 +8,9 @@ and ``load_model``; ``predict``, ``predict_img``, ``predict_batch``,
 letterbox preprocessing); the mAP pipeline ``export_gt`` /
 ``export_prediction`` / ``eval_map``; ``trainer``, ``fit`` and
 ``sync_from_trainer``; int8 post-training quantization, ``quantize`` and
-``dequantize`` (``models.quantize``); inference sharded on the batch over
-the ranks of a process group, ``distribute`` (``parallel.mesh``).  The
+``dequantize`` (``models.quantize``); inference sharded over the ranks of
+a process group, ``distribute``, on the batch (``parallel.mesh``) or on
+the image's rows (``parallel.spatial``).  The
 inference path is the BN-folded forward (models.network) -> fused decode
 (ops.detect) -> candidate NMS with the CUDA suppression kernel
 (ops.nms_cuda); with ``nms_impl="pallas"`` it is decode -> per-class
@@ -38,6 +39,7 @@ from .ops.detect import detect_fused
 from .ops.nms import combined_nms
 from .ops.nms_cuda import combined_nms_sorted
 from .data.pipeline import letterbox_resize
+from .parallel import spatial
 from .parallel.mesh import barrier, gather_rows, replicate
 from .train import Trainer, tree_map
 from .utils.stream import threaded_map
@@ -59,7 +61,7 @@ def _select_raw_apply(scales, dataflow: str):
 
 def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
                    quantized: Optional[dict] = None,
-                   quantized_dataflow: str = "int8"):
+                   quantized_dataflow: str = "int8", spatial_mesh=None):
     """End-to-end inference fn: (folded, images, iou_t, score_t) ->
     (boxes (B,T,4), scores (B,T), classes (B,T), valid_detections (B,)).
 
@@ -71,6 +73,11 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
     (``prepare_folded`` of ``quantize_folded``'s) and the forward is the
     int8 one with those static scales.  quantized_dataflow: "int8" (inter-op
     tensors stay int8) or "bf16".
+
+    spatial_mesh: None, or the mesh whose ranks share each image's rows
+    (``parallel.spatial``; ``cfg.s2d_stem`` must be off): ``images`` are
+    then this rank's rows (``spatial.local_rows``), the forward runs
+    sharded, and every rank decodes and suppresses the gathered grids.
     """
     if cfg.nms_impl not in ("fast", "xla", "pallas"):
         raise ValueError(f"unknown nms_impl {cfg.nms_impl!r}")
@@ -81,6 +88,8 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
     anchors = cfg.anchors_grouped
     strides, xyscale, img_size = cfg.strides, cfg.xyscale, cfg.img_size
     apply = _select_raw_apply(quantized, quantized_dataflow)
+    if spatial_mesh is not None:
+        apply = spatial.sharded_apply(apply, spatial_mesh, img_size[0])
 
     @torch.inference_mode()
     def infer_fn(folded, images, iou_t, score_t):
@@ -136,6 +145,7 @@ class Yolov4:
         self._act_scales = None  # set by quantize(): int8 inference on
         self._q_dataflow = "int8"
         self._mesh = None        # set by distribute(): sharded inference
+        self._axis = "batch"     # what distribute() shards
         self.build_model(load_pretrained=bool(weight_path))
 
     # ------------------------------------------------------------------
@@ -174,7 +184,9 @@ class Yolov4:
         place the params and build the raw and inference functions.  On a
         mesh (``distribute``) every rank takes rank 0's fold and scales
         before quantizing, so every rank serves rank 0's weights: each
-        rank calls this at the same point."""
+        rank calls this at the same point.  On the spatial axis the
+        functions run sharded, with the s2d stem off in a copy of the
+        config, as the JAX package's do."""
         if self.config.compute_dtype not in _DTYPES:
             raise ValueError(
                 f"unknown compute_dtype {self.config.compute_dtype!r}")
@@ -193,10 +205,21 @@ class Yolov4:
                                               self._compute_dtype)
         self._raw_apply = _select_raw_apply(self._act_scales,
                                             self._q_dataflow)
-        self._infer_fn = build_infer_fn(self.config, self.num_classes,
+        cfg, mesh = self.config, self._spatial_mesh()
+        if mesh is not None:
+            cfg = cfg.replace(s2d_stem=False)
+            self._raw_apply = spatial.sharded_apply(self._raw_apply, mesh,
+                                                    self.img_size[0])
+        self._infer_fn = build_infer_fn(cfg, self.num_classes,
                                         self._compute_dtype,
                                         quantized=self._act_scales,
-                                        quantized_dataflow=self._q_dataflow)
+                                        quantized_dataflow=self._q_dataflow,
+                                        spatial_mesh=mesh)
+
+    def _spatial_mesh(self):
+        """The mesh when inference is sharded on the image's rows, else
+        None."""
+        return self._mesh if self._axis == "spatial" else None
 
     def sync_params(self, params, state):
         """Swap in new (params, state) dictionaries (CPU tensors) and refold;
@@ -267,30 +290,33 @@ class Yolov4:
 
     def distribute(self, num_devices: Optional[int] = None,
                    axis: str = "batch"):
-        """Shard batched inference over the ranks of the process group
+        """Shard inference over the ranks of the process group
         (``parallel.init_distributed`` first, or torchrun), one process per
-        device, as data-parallel training runs.
+        device, as data-parallel training runs.  Every rank passes each
+        inference call the same batch and gets the whole batch's outputs
+        back; the folded weights are rank 0's, on every refresh.  Files
+        (``export_prediction``, the video tool) are written by rank 0.
+        ``num_devices`` (default ``config.num_devices``) must equal the
+        world size.  Every rank calls this, and every later inference
+        call, at the same point.
 
-        ``axis="batch"``: every rank passes ``predict_batch`` the same global
-        batch, runs its own contiguous rows of it (the batch padded with
-        zero images to a multiple of the rank count) and gets every rank's
-        detections back through one ``all_gather``; the folded weights are
-        rank 0's, on every refresh.  Files (``export_prediction``, the
-        video tool) are written by rank 0.  ``num_devices`` (default
-        ``config.num_devices``) must equal the world size.  Every rank
-        calls this, and every later inference call, at the same point.
-        ``axis="spatial"`` (the image's rows sharded) is not ported yet.
+        ``axis="batch"``: each rank runs its own contiguous rows of the
+        batch (padded with zero images to a multiple of the rank count),
+        and one ``all_gather`` collects the detections.
+        ``axis="spatial"``: each rank runs its own rows of every image
+        (``parallel.spatial``: spans of the stride-32 grid's rows, H a
+        multiple of 32), exchanging the rows each 3x3 conv and SPP pool
+        needs from the others, one ``all_gather`` each; the raw grids are
+        gathered, and every rank decodes and suppresses them.  The
+        space-to-depth stem is off on this axis, as in the JAX package.
         """
         if axis not in ("batch", "spatial"):
             raise ValueError(
                 f"axis must be 'batch' or 'spatial', got {axis!r}")
-        if axis == "spatial":
-            raise NotImplementedError(
-                "spatial-sharded inference is not ported yet "
-                "(ROADMAP.md queue A item 14c)")
         from .parallel.mesh import make_mesh
         self._mesh = make_mesh(num_devices or self.config.num_devices,
                                self.device)
+        self._axis = axis
         self._refresh_inference()
         return self
 
@@ -370,11 +396,28 @@ class Yolov4:
         return to_device_async(imgs, self.device), transforms
 
     def _raw(self, images):
+        """The raw NHWC grids of a batch on the model's device; on the
+        spatial axis every rank passes the same batch, runs its rows and
+        gets the whole grids."""
+        mesh = self._spatial_mesh()
+        if mesh is not None:
+            images = self._local_rows(images)
         with torch.inference_mode():
             return self._raw_apply(
                 self._folded, images, self.num_classes, self._compute_dtype,
                 csp_repeats=self.config.csp_repeats,
-                s2d_stem=self.config.s2d_stem)
+                s2d_stem=self.config.s2d_stem and mesh is None)
+
+    def _local_rows(self, imgs):
+        """This rank's rows of a batch on the spatial axis
+        (``spatial.local_rows``)."""
+        if imgs.shape[1] != self.img_size[0]:
+            raise ValueError(
+                f"spatial-sharded inference takes images of "
+                f"{self.img_size[0]} rows (config.img_size), got "
+                f"{imgs.shape[1]}")
+        plan = spatial.shard_plan(self.img_size[0], self._mesh.size)
+        return spatial.local_rows(imgs, plan, self._mesh.rank)
 
     def predict_batch(self, imgs, iou_threshold: Optional[float] = None,
                       score_threshold: Optional[float] = None):
@@ -386,10 +429,12 @@ class Yolov4:
         The JAX package pads ragged batches to bound XLA recompiles; an
         eager forward has nothing to recompile, and padding is exact, so
         the port does not pad on one device.  On a mesh (``distribute``)
-        every rank passes the same batch of b images: it is padded with
-        zero images to the least multiple of the rank count, each rank
-        copies and runs its own contiguous rows, and every rank returns the
-        whole batch's outputs, trimmed to b.
+        every rank passes the same batch of b images.  On the batch axis it
+        is padded with zero images to the least multiple of the rank count,
+        each rank copies and runs its own contiguous rows, and every rank
+        returns the whole batch's outputs, trimmed to b.  On the spatial
+        axis each rank copies its own rows of every image, and every rank
+        returns the whole batch's outputs.
         """
         iou_t = (self.config.iou_threshold if iou_threshold is None
                  else iou_threshold)
@@ -399,6 +444,10 @@ class Yolov4:
         if mesh is None:
             return self._infer_fn(self._folded, _wire(imgs).to(self.device),
                                   iou_t, score_t)
+        if self._axis == "spatial":
+            return self._infer_fn(
+                self._folded, _wire(self._local_rows(imgs)).to(self.device),
+                iou_t, score_t)
         b = imgs.shape[0]
         rows = -(-b // mesh.size)
         mine = imgs[mesh.rank * rows:(mesh.rank + 1) * rows]

@@ -505,14 +505,18 @@ class _FoldedApplyOps(_NCHWOps):
 def apply_folded(folded_params, images, num_classes: int,
                  compute_dtype=torch.float32,
                  csp_repeats=topology.DEFAULT_CSP_REPEATS,
-                 s2d_stem: bool = True):
+                 s2d_stem: bool = True, wrap_ops=None):
     """Inference forward over BN-folded params.
 
     images (B, H, W, 3) NHWC -> [sbbox, mbbox, lbbox] raw grids, NHWC
     float32 (B, H/s, W/s, 3*(5+C)).  Convs run in ``compute_dtype``, bias
     added in it, outputs cast back to float32 (as the JAX package does).
+    ``wrap_ops``: None, or a callable that takes the ops backend and
+    returns the op set the topology runs on (``parallel.spatial``).
     """
     ops = _FoldedApplyOps(folded_params, compute_dtype, s2d_stem=s2d_stem)
+    if wrap_ops is not None:
+        ops = wrap_ops(ops)
     x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
     outs = topology.yolov4(ops, x, num_classes, csp_repeats)
     return [o.permute(0, 2, 3, 1).float().contiguous() for o in outs]

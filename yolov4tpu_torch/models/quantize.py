@@ -437,7 +437,7 @@ def apply_quantized(qparams, images, num_classes: int,
                     csp_repeats=topology.DEFAULT_CSP_REPEATS,
                     s2d_stem: bool = True,
                     scales: Optional[Dict[str, np.ndarray]] = None,
-                    dataflow: str = "int8"):
+                    dataflow: str = "int8", wrap_ops=None):
     """Inference forward over int8 params: images (B, H, W, 3) NHWC ->
     [sbbox, mbbox, lbbox] NHWC float32 raw grids, as
     ``network.apply_folded``.
@@ -445,13 +445,16 @@ def apply_quantized(qparams, images, num_classes: int,
     qparams: ``quantize_folded``'s params, or ``prepare_folded`` of them.
     scales: the calibration dict (numpy), read as Python floats; None reads
     ``qparams["scales"]``.  dataflow: "int8" keeps inter-op tensors int8;
-    "bf16" is the per-conv scheme.
+    "bf16" is the per-conv scheme.  wrap_ops: as ``network.apply_folded``
+    takes it.
     """
     if scales is None:
         scales = qparams["scales"]
     scales = {k: np.asarray(v) for k, v in scales.items()}
     cls = {"int8": _QuantizedFlowOps, "bf16": _QuantizedApplyOps}[dataflow]
     ops = cls(qparams, scales, compute_dtype, s2d_stem=s2d_stem)
+    if wrap_ops is not None:
+        ops = wrap_ops(ops)
     x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
     outs = topology.yolov4(ops, x, num_classes, csp_repeats)
     return [o.permute(0, 2, 3, 1).float().contiguous() for o in outs]
