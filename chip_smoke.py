@@ -167,7 +167,25 @@ exits non-zero without printing a result:
      single-device bf16 grids', 47 halo exchanges and one gather a forward
      on every rank and 112 rows across the boundary, one NMS kernel launch
      a call, and the ms a call at b1 and b8 bf16 with the exchanges' share
-     beside the single-device facade's.
+     beside the single-device facade's;
+ 11. the user's command lines (``yolov4tpu_torch.examples``), each through
+     ``main(argv)`` with ``--device cuda``, at full depth, 416^2, COCO-80
+     (names underscored), on phase 3's calibrated weights, the launch
+     counts zeroed before each script and read after it: (a)
+     ``inference`` in bf16, float32 (TF32 off) and int8, each printed
+     table within 1e-3 per box of the facade's ``predict`` (classes and
+     counts equal), one ``suppress_rank`` launch a call, and one cold run
+     as a new process (``python -m``) timed from start to the table; (b)
+     ``eval --bs 8`` and ``--letterbox`` over phase 5's 16 JPEGs, the
+     printed mAP line equal to the same calls made directly on a facade,
+     one launch a batch; (c) ``train --bf16 --pallas-wgrad`` with mosaic,
+     flip, jitter and multi-scale (320, 608), one epoch of two b8 steps,
+     37 tensor-core wgrad launches a step, the epoch's checkpoint and the
+     final file written and loaded by a facade that runs
+     ``predict_batch``; (d) ``export_serving export --bf16 --uint8 --batch
+     8`` then ``run`` on a JPEG, the printed detections exactly
+     ``load_detector``'s on the same batch, one launch.  No script runs
+     ``suppress`` (the default NMS is "fast").
 
 Each phase prints its seconds.  The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times (``device_ms`` from CUDA-graph
@@ -3707,6 +3725,323 @@ def distributed_phase(torch, busy, folder, lines, card):
             "frames_s": vid["frames_s"], "spatial": spatial}
 
 
+# ---------------------------------------------------------------------------
+# The user's command lines (yolov4tpu_torch.examples), in-process
+# ---------------------------------------------------------------------------
+
+# Phase 11c's --multi-scale range: phase 8e's, where the ingest and the
+# step were measured.
+CLI_MULTI_SCALE = (320, 608)
+
+
+def captured(fn, *args):
+    """(fn(*args), what it printed on stdout)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def printed_table(text: str):
+    """The last ``DataFrame.to_string()`` table in ``text``, read back (the
+    class names have no spaces)."""
+    import io
+
+    import pandas as pd
+    lines = text.splitlines()
+    head = max(i for i, line in enumerate(lines) if "class_name" in line)
+    return pd.read_csv(io.StringIO("\n".join(lines[head:])), sep=r"\s+")
+
+
+def table_detections(df, height: int, width: int):
+    """A detections DataFrame as ``match_detections`` takes it, the boxes in
+    units of the image's width and height."""
+    scale = np.array([width, height, width, height], np.float64)
+    return (df[["x1", "y1", "x2", "y2"]].to_numpy(np.float64) / scale,
+            df["score"].to_numpy(np.float64), df["class_name"].to_numpy(),
+            len(df))
+
+
+def cli_inference_phase(torch, busy, classes, jpg, card):
+    """Phase 11a: ``examples/inference.py`` through ``main(argv)`` in bf16,
+    float32 (TF32 off) and int8, each printed table within 1e-3 per box of
+    the facade's ``predict(jpg, plot_img=False)`` (classes and counts
+    equal; the int8 facade quantized on the same image), one
+    ``suppress_rank`` launch a call; then one cold run as a new process
+    (``python -m``), its wall time from start to the table.  Returns
+    (launches, seconds of the cold run)."""
+    import cv2
+
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.config import YoloConfig
+    from yolov4tpu_torch.examples import inference
+    from yolov4tpu_torch.ops import nms_cuda
+
+    h, w = cv2.imread(str(jpg)).shape[:2]
+    base = ["--weights", str(busy), "--image", str(jpg), "--classes",
+            str(classes), "--device", "cuda"]
+    launches = 0
+    tables = {}
+    for label, flags, dtype in (("bf16", ["--bf16"], "bfloat16"),
+                                ("float32", [], "float32"),
+                                ("int8", ["--int8"], "bfloat16")):
+        nms_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, text = captured(inference.main, base + flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = nms_cuda.LAUNCHES
+        check(n == 1, f"inference.py {label}: suppress_rank launched {n} "
+              "times in one predict")
+        launches += n
+        facade = Yolov4(weight_path=str(busy), class_name_path=str(classes),
+                        config=YoloConfig(compute_dtype=dtype))
+        if label == "int8":
+            facade.quantize(calib_paths=[str(jpg)])
+        want = facade.predict(str(jpg), plot_img=False)
+        del facade
+        check(len(want) > 0, f"inference {label}: no detections")
+        tables[label] = got = printed_table(text)
+        check(list(got.columns) == list(want.columns),
+              f"inference.py {label}: columns {list(got.columns)}")
+        dev = match_detections(table_detections(got, h, w),
+                               table_detections(want, h, w), 1e-3)
+        log(f"11a inference.py {label}: {len(got)} rows printed, equal to "
+            f"the facade's predict() within {dev:.3g} (limit 1e-3), 1 "
+            f"suppress_rank launch; {seconds:.2f} s in-process ({card})")
+
+    # The user's start: a new process, the kernel's .so already built into
+    # build/torch_kernels/ by phase 1 (the digest cache), so no nvcc.
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "yolov4tpu_torch.examples.inference", *base,
+                           "--bf16"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    cold = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m yolov4tpu_torch.examples."
+          f"inference exited {proc.returncode}: {proc.stderr[-3000:]}")
+    dev = match_detections(table_detections(printed_table(proc.stdout), h, w),
+                           table_detections(tables["bf16"], h, w), 1e-3)
+    log(f"11a cold start, python -m yolov4tpu_torch.examples.inference "
+        f"--bf16 in a new process: {cold:.2f} s from start to the table "
+        f"(the kernel's .so cached), rows within {dev:.3g} of the "
+        f"in-process run ({card})")
+    return launches, cold
+
+
+def cli_eval_phase(torch, busy, classes, folder, card):
+    """Phase 11b: ``examples/eval.py`` (``--bs 8``, then ``--letterbox``)
+    over phase 5's 16 JPEGs, scored against half of a facade's own
+    detections, its printed mAP line equal to the same
+    ``export_gt`` -> ``export_prediction(bs=8)`` -> ``eval_map`` calls made
+    directly on a facade with the same config; one ``suppress_rank``
+    launch a batch.  Returns the launches."""
+    import importlib.util
+    import shutil
+
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.config import YoloConfig
+    from yolov4tpu_torch.examples import eval as eval_cli
+    from yolov4tpu_torch.ops import nms_cuda
+
+    # Ground truth: half of each image's detections by a float32 facade
+    # (rounded to pixels) and one box it does not find, so the mAP is
+    # neither 0 nor 1.
+    facade = Yolov4(weight_path=str(busy), class_name_path=str(classes),
+                    config=YoloConfig())
+    jpegs = sorted(folder.glob("*.jpg"))
+    lines = []
+    for path, df in facade.predict_paths([str(p) for p in jpegs], bs=8):
+        boxes = [f"{int(r.x1)},{int(r.y1)},{int(r.x2)},{int(r.y2)},"
+                 f"{facade.class_names.index(r.class_name)}"
+                 for r in df.iloc[::2].itertuples()]
+        lines.append(pathlib.Path(path).name + " "
+                     + " ".join(boxes + ["1,2,30,40,1"]) + "\n")
+    del facade
+    anno = SCRATCH / "cli_eval" / "annotations.txt"
+    anno.parent.mkdir(parents=True, exist_ok=True)
+    anno.write_text("".join(lines))
+    batches = -(-len(lines) // 8)
+    plot = importlib.util.find_spec("matplotlib") is not None
+    launches = 0
+    for label, flags in (("stretch", []), ("letterbox", ["--letterbox"])):
+        out = SCRATCH / "cli_eval" / label
+        shutil.rmtree(out, ignore_errors=True)
+        argv = ["--weights", str(busy), "--anno", str(anno), "--classes",
+                str(classes), "--imgdir", str(folder), "--outdir",
+                str(out / "cli"), "--bs", "8", "--device", "cuda", *flags]
+        if not plot:
+            argv.append("--no-plot")
+        nms_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        _, text = captured(eval_cli.main, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = nms_cuda.LAUNCHES
+        check(n == batches, f"eval.py {label}: suppress_rank launched {n} "
+              f"times for {batches} batches")
+        launches += n
+        printed = json.loads(text.strip().splitlines()[-1])
+
+        facade = Yolov4(weight_path=str(busy), class_name_path=str(classes),
+                        config=YoloConfig(letterbox=bool(flags)))
+        d = {k: str(out / "direct" / k) for k in ("gt", "pred", "json", "res")}
+        facade.export_gt(str(anno), d["gt"])
+        facade.export_prediction(str(anno), d["pred"], str(folder), bs=8,
+                                 verbose=False)
+        direct = facade.eval_map(d["gt"], d["pred"], d["json"], d["res"],
+                                 plot=plot, verbose=False)
+        del facade
+        want = {"mAP": direct["mAP"],
+                "per_class": {k: v for k, v in direct.items() if k != "mAP"}}
+        check(printed == want, f"eval.py {label}: printed {printed}, the "
+              f"direct calls give {want}")
+        check(0 < printed["mAP"] < 1, f"eval.py {label}: mAP "
+              f"{printed['mAP']}, want one in (0, 1)")
+        log(f"11b eval.py --bs 8 {label}: mAP {printed['mAP']!r} over "
+            f"{len(printed['per_class'])} classes, equal to the direct "
+            f"calls; {n} suppress_rank launches; {seconds:.2f} s ({card})")
+    return launches
+
+
+def cli_train_phase(torch, busy, classes, folder, card, per_step):
+    """Phase 11c: ``examples/train.py --bf16 --pallas-wgrad`` with mosaic,
+    flip, jitter and multi-scale, one epoch of two b8 steps from phase 3's
+    weights: ``per_step`` tensor-core wgrad launches a step, the epoch's
+    checkpoint and the final file written, the final file loaded by a
+    facade that runs ``predict_batch``.  Returns the wgrad launches."""
+    import shutil
+
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.config import YoloConfig
+    from yolov4tpu_torch.examples import train as train_cli
+    from yolov4tpu_torch.ops import wgrad_cuda
+
+    out = SCRATCH / "cli_train"
+    shutil.rmtree(out, ignore_errors=True)
+    lo, hi = CLI_MULTI_SCALE
+    argv = ["--anno", str(folder / "annotations.txt"), "--classes",
+            str(classes), "--imgdir", str(folder), "--epochs", "1",
+            "--batch", "8", "--bf16", "--pallas-wgrad", "--mosaic",
+            "--hflip", "--jitter", "--multi-scale", str(lo), str(hi),
+            "--ckpt", str(out), "--out", str(out / "final.npz"),
+            "--weights", str(busy), "--device", "cuda"]
+    wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+    t0 = time.perf_counter()
+    model, _ = captured(train_cli.main, argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    trainer = model.trainer()
+    steps = trainer.global_step
+    n, tc = wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES
+    check(steps == 2, f"train.py ran {steps} steps, want 2")
+    check(n == per_step * steps and tc == n, f"train.py: wgrad launched "
+          f"{n} times ({tc} on the tensor cores) in {steps} steps, want "
+          f"{per_step} a step, all on the tensor cores")
+    loss = trainer.history[-1]["loss"]
+    check(np.isfinite(loss), f"train.py: loss {loss}")
+    files = sorted(p.name for p in out.iterdir())
+    check(files == ["epoch0.npz", "final.npz"], f"train.py wrote {files}")
+    loaded = Yolov4(weight_path=str(out / "final.npz"),
+                    class_name_path=str(classes),
+                    config=YoloConfig(compute_dtype="bfloat16"))
+    boxes, scores, _, valid = loaded.predict_batch(scene(11, 8))
+    check(tuple(boxes.shape) == (8, 100, 4) and boxes.is_cuda
+          and bool(torch.isfinite(scores.float()).all()),
+          f"final.npz: boxes {tuple(boxes.shape)} on {boxes.device}")
+    log(f"11c train.py --bf16 --pallas-wgrad --mosaic --hflip --jitter "
+        f"--multi-scale {lo} {hi}: {steps} b8 steps, loss {loss:.4f}, "
+        f"{n} wgrad launches ({tc} on the tensor cores), "
+        f"{', '.join(files)} written; final.npz loaded, predict_batch valid "
+        f"{valid.tolist()}; {seconds:.2f} s ({card})")
+    return n
+
+
+def cli_serving_phase(torch, busy, classes, jpg, card):
+    """Phase 11d: ``examples/export_serving.py export --bf16 --uint8 --batch
+    8``, then ``run`` on a JPEG: its printed detections exactly those of
+    ``load_detector`` on the same artifact and the same batch built the
+    same way; one ``suppress_rank`` launch (the artifact's custom op).
+    Returns the launches."""
+    import cv2
+
+    from yolov4tpu_torch import serving
+    from yolov4tpu_torch.config import YoloConfig
+    from yolov4tpu_torch.examples import export_serving
+    from yolov4tpu_torch.ops import nms_cuda
+
+    artifact = SCRATCH / "cli_b8_bf16_uint8.pt2"
+    t0 = time.perf_counter()
+    _, text = captured(export_serving.main, [
+        "export", "--weights", str(busy), "--classes", str(classes),
+        "--out", str(artifact), "--batch", "8", "--bf16", "--uint8",
+        "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    check(text.strip().splitlines()[-1].startswith(f"exported {artifact}"),
+          f"export printed {text[-300:]!r}")
+    nms_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    _, text = captured(export_serving.main, [
+        "run", "--artifact", str(artifact), "--image", str(jpg),
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n = nms_cuda.LAUNCHES
+    check(n == 1, f"export_serving.py run: suppress_rank launched {n} times")
+
+    side = YoloConfig().img_size[0]
+    detect = serving.load_detector(str(artifact), device="cuda")
+    check(detect.input_shape == (8, side, side, 3)
+          and detect.input_dtype == np.uint8,
+          f"artifact takes {detect.input_dtype} {detect.input_shape}")
+    x = np.zeros(detect.input_shape, detect.input_dtype)
+    x[0] = cv2.resize(cv2.imread(str(jpg))[:, :, ::-1], (side, side))
+    boxes, scores, classes_, valid = [o.cpu().float().numpy()
+                                      for o in detect(x)]
+    nv = int(valid[0])
+    want = [f"{nv} detections"] + [
+        f"  class={int(c)} score={s:.3f} box={np.round(b, 3)}"
+        for b, s, c in zip(boxes[0, :nv], scores[0, :nv], classes_[0, :nv])]
+    check(nv > 0, "export_serving.py run: no detections")
+    check(text.strip("\n").splitlines() == want,
+          "export_serving.py run printed other detections than "
+          "load_detector gives")
+    mb = artifact.stat().st_size / 1e6
+    artifact.unlink()
+    log(f"11d export_serving.py export --bf16 --uint8 --batch 8: "
+        f"{mb:.1f} MB in {export_s:.2f} s; run: {nv} detections printed, "
+        f"equal to load_detector's, 1 suppress_rank launch, {run_s:.2f} s "
+        f"({card})")
+    return n
+
+
+def cli_phase(torch, busy, folder, card, per_step):
+    """Phase 11: the user's command lines (``yolov4tpu_torch.examples``)
+    at full depth, 416^2, COCO-80 (class names underscored), on phase 3's
+    calibrated weights and phase 5's JPEGs, each script through
+    ``main(argv)`` with ``--device cuda``.  Returns the kernels' launches
+    and the cold start."""
+    classes = SCRATCH / "coco_classes_underscored.txt"
+    jpg = folder / "train1.jpg"
+    t = time.perf_counter()
+    launches, cold = cli_inference_phase(torch, busy, classes, jpg, card)
+    log(f"phase 11a: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches += cli_eval_phase(torch, busy, classes, folder, card)
+    log(f"phase 11b: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    wgrad = cli_train_phase(torch, busy, classes, folder, card, per_step)
+    log(f"phase 11c: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches += cli_serving_phase(torch, busy, classes, jpg, card)
+    log(f"phase 11d: {time.perf_counter() - t:.1f} s")
+    log("phase 11: no script runs the sorted kernel `suppress` (the default "
+        "nms_impl is \"fast\"); its totals are the earlier phases'")
+    return {"suppress_rank": launches, "wgrad": wgrad, "cold_s": cold}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3926,6 +4261,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     served10 = distributed_phase(torch, busy, folder, lines, card)
     phase_done("10 (distributed inference and video)")
+
+    # --- 11. the user's command lines -------------------------------------
+    torch.cuda.empty_cache()
+    cli = cli_phase(torch, busy, folder, card, sum(shapes.values()))
+    phase_done("11 (command lines)")
     log(f"all phases: {time.perf_counter() - start:.1f} s")
 
     kernels = [{"name": "suppress_rank", "route": "cuda",
@@ -3935,7 +4275,8 @@ def main() -> int:
                              + int8_launches + served["suppress_rank"]
                              + ingested["suppress_rank"]
                              + parallel["suppress_rank"]
-                             + served10["suppress_rank"]),
+                             + served10["suppress_rank"]
+                             + cli["suppress_rank"]),
                 "max_abs_err": worst,
                 "ms": k8["ms"], "device_ms": k8["device_ms"],
                 "plain_ms": k8["plain_ms"],
@@ -3955,7 +4296,8 @@ def main() -> int:
                 "source": "yolov4tpu_torch/csrc/wgrad_3x3.cu",
                 "replaces": "yolov4tpu/ops/wgrad_pallas.py:48",
                 "launches": (wlaunches + persisted["wgrad"]
-                             + ingested["wgrad"] + parallel["wgrad"]),
+                             + ingested["wgrad"] + parallel["wgrad"]
+                             + cli["wgrad"]),
                 "max_abs_err": max(wgrad_err, ingested["wgrad_err"]),
                 "ms": wg["ms"], "plain_ms": wg["plain_ms"],
                 "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"],

@@ -15,6 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from yolov4tpu import weights as jweights
@@ -141,6 +142,23 @@ def small_tree(seed: int = 0, convs=((3, 3, 8, True), (1, 8, 6, False),
             bn.append(None)
         layers.append(p)
     return {"convs": layers}, {"bn": bn}
+
+
+@pytest.fixture
+def no_cluster(monkeypatch):
+    """No process group and no cluster variables (torchrun's, or those by
+    which ``init_distributed`` refuses a one-rank group); a group the test
+    makes is destroyed after it.  Import it into a test module to use it."""
+    import torch.distributed as dist
+
+    from yolov4tpu_torch.parallel import mesh
+    assert not dist.is_initialized()
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                 "LOCAL_RANK", *(n for n, _ in mesh._MULTI_HOST_HINTS)):
+        monkeypatch.delenv(name, raising=False)
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def to_numpy(x) -> np.ndarray:

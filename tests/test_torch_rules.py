@@ -40,7 +40,11 @@ def test_port_imports_nothing_of_jax():
             "yolov4tpu_torch.parallel, yolov4tpu_torch.parallel.mesh, "
             "yolov4tpu_torch.parallel.spatial, "
             "yolov4tpu_torch.utils.metrics, yolov4tpu_torch.utils.profiling, "
-            "yolov4tpu_torch.tools.video\n"
+            "yolov4tpu_torch.tools.video, yolov4tpu_torch.examples, "
+            "yolov4tpu_torch.examples.inference, "
+            "yolov4tpu_torch.examples.eval, "
+            "yolov4tpu_torch.examples.export_serving, "
+            "yolov4tpu_torch.examples.train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'yolov4tpu' or "
             "m.startswith('yolov4tpu.'))\n"

@@ -5,9 +5,10 @@ and the forward pass, so the serial order of conv layers — the contract the
 darknet ``.weights`` importer relies on — is identical in both.  A copy of
 ``yolov4tpu.models.topology`` (the port imports nothing of the JAX package).
 
-Architecture (tf.keras reference custom_layers.py:100-198):
+Architecture (tf.keras reference custom_layers.py:72-198):
   - CSPDarknet53 backbone + SPP
   - PANet neck + 3 raw heads
+  - legacy darknet53 (unused by YOLOv4, kept for the reference's surface)
 The reference's activation choices are followed exactly, including leaky
 stem and pre/post-SPP convs.
 """
@@ -155,3 +156,34 @@ def yolov4(ops, x, num_classes: int, csp_repeats=DEFAULT_CSP_REPEATS):
     """Full raw-grid forward: image -> [sbbox, mbbox, lbbox] raw conv outputs."""
     routes = cspdarknet53(ops, x, csp_repeats)
     return yolov4_neck(ops, routes, num_classes)
+
+
+def darknet53(ops, x):
+    """Legacy YOLOv3 backbone (reference custom_layers.py:72-97; defined but
+    never called by the reference, nor by this package's model).  Returns
+    the taps at strides 8, 16 and 32 (256, 512 and 1024 channels)."""
+
+    def residual(x, f1, f2):
+        y = ops.conv(x, f1, 1)
+        y = ops.conv(y, f2, 3)
+        return ops.add(x, y)
+
+    x = ops.conv(x, 32, 3)
+    x = ops.conv(x, 64, 3, downsampling=True)
+    for _ in range(1):
+        x = residual(x, 32, 64)
+    x = ops.conv(x, 128, 3, downsampling=True)
+    for _ in range(2):
+        x = residual(x, 64, 128)
+    x = ops.conv(x, 256, 3, downsampling=True)
+    for _ in range(8):
+        x = residual(x, 128, 256)
+    route_1 = x
+    x = ops.conv(x, 512, 3, downsampling=True)
+    for _ in range(8):
+        x = residual(x, 256, 512)
+    route_2 = x
+    x = ops.conv(x, 1024, 3, downsampling=True)
+    for _ in range(4):
+        x = residual(x, 512, 1024)
+    return route_1, route_2, x

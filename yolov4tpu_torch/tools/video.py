@@ -13,7 +13,8 @@ Usage (CLI)::
 
     python -m yolov4tpu_torch.tools.video --weights yolov4.weights \
         --classes class_names/coco_classes.txt \
-        --input in.mp4 --output out.mp4 [--bs 8] [--score 0.5]
+        --input in.mp4 --output out.mp4 [--bs 8] [--score 0.5] \
+        [--device cuda]
 """
 
 from __future__ import annotations
@@ -119,13 +120,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--bs", type=int, default=8)
     ap.add_argument("--score", type=float, default=None)
     ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     from ..api import Yolov4
     from ..config import YoloConfig
 
     model = Yolov4(weight_path=args.weights, class_name_path=args.classes,
-                   config=YoloConfig(compute_dtype="bfloat16"))
+                   config=YoloConfig(compute_dtype="bfloat16"),
+                   device=args.device)
     return annotate_video(model, args.input, args.output, bs=args.bs,
                           score_threshold=args.score,
                           max_frames=args.max_frames)
