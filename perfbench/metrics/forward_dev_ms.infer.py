@@ -1,0 +1,11 @@
+"""Device time of the program's ``forward`` span in ``predict_batch``:
+the uint8 normalise and the folded forward (``api.build_infer_fn``),
+from its start event to its end event on the stream (idle inside
+included), mean over the traced window's calls, in ms; None on the CPU."""
+
+from perfbench.harness import program_trace
+
+
+def read(ctx):
+    return program_trace.per_call_ms(ctx, "predict_batch", "forward",
+                                     device=True)

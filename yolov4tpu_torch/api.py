@@ -25,6 +25,7 @@ CPU, where the suppression kernel's plain torch version stands in for it.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -42,6 +43,7 @@ from .data.pipeline import letterbox_resize
 from .parallel import spatial
 from .parallel.mesh import barrier, gather_rows, replicate
 from .train import Trainer, tree_map
+from .utils.profiling import span
 from .utils.stream import threaded_map
 from .utils.visualize import draw_bbox, get_detection_data
 
@@ -93,10 +95,11 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
 
     @torch.inference_mode()
     def infer_fn(folded, images, iou_t, score_t):
-        if images.dtype == torch.uint8:
-            images = images.to(torch.float32) / 255.0
-        raws = apply(folded, images, num_classes, compute_dtype,
-                     csp_repeats=cfg.csp_repeats, s2d_stem=cfg.s2d_stem)
+        with span("forward", device=images.device):
+            if images.dtype == torch.uint8:
+                images = images.to(torch.float32) / 255.0
+            raws = apply(folded, images, num_classes, compute_dtype,
+                         csp_repeats=cfg.csp_repeats, s2d_stem=cfg.s2d_stem)
         if cfg.nms_impl == "fast":
             return detect_fused(
                 raws, anchors, num_classes, strides, xyscale, img_size[0],
@@ -146,6 +149,7 @@ class Yolov4:
         self._q_dataflow = "int8"
         self._mesh = None        # set by distribute(): sharded inference
         self._axis = "batch"     # what distribute() shards
+        self._call_ids = itertools.count()  # predict_batch's span ids
         self.build_model(load_pretrained=bool(weight_path))
 
     # ------------------------------------------------------------------
@@ -440,23 +444,30 @@ class Yolov4:
                  else iou_threshold)
         score_t = (self.config.score_threshold if score_threshold is None
                    else score_threshold)
-        imgs, mesh = torch.as_tensor(imgs), self._mesh
-        if mesh is None:
-            return self._infer_fn(self._folded, _wire(imgs).to(self.device),
-                                  iou_t, score_t)
-        if self._axis == "spatial":
-            return self._infer_fn(
-                self._folded, _wire(self._local_rows(imgs)).to(self.device),
-                iou_t, score_t)
-        b = imgs.shape[0]
-        rows = -(-b // mesh.size)
-        mine = imgs[mesh.rank * rows:(mesh.rank + 1) * rows]
-        if mine.shape[0] < rows:
-            mine = torch.cat([mine, mine.new_zeros(
-                (rows - mine.shape[0], *mine.shape[1:]))])
-        out = self._infer_fn(self._folded, _wire(mine).to(self.device),
-                             iou_t, score_t)
-        return tuple(o[:b] for o in gather_rows(out, mesh))
+        with span("predict_batch", id=next(self._call_ids),
+                  images=len(imgs)):
+            imgs, mesh = torch.as_tensor(imgs), self._mesh
+            if mesh is None:
+                return self._infer_fn(self._folded, self._upload(imgs),
+                                      iou_t, score_t)
+            if self._axis == "spatial":
+                return self._infer_fn(
+                    self._folded, self._upload(self._local_rows(imgs)),
+                    iou_t, score_t)
+            b = imgs.shape[0]
+            rows = -(-b // mesh.size)
+            mine = imgs[mesh.rank * rows:(mesh.rank + 1) * rows]
+            if mine.shape[0] < rows:
+                mine = torch.cat([mine, mine.new_zeros(
+                    (rows - mine.shape[0], *mine.shape[1:]))])
+            out = self._infer_fn(self._folded, self._upload(mine), iou_t,
+                                 score_t)
+            return tuple(o[:b] for o in gather_rows(out, mesh))
+
+    def _upload(self, imgs):
+        """A host batch on the model's device, as ``infer_fn`` takes it."""
+        with span("upload"):
+            return _wire(imgs).to(self.device)
 
     def predict_paths(self, img_paths, bs: int = 8,
                       iou_threshold: Optional[float] = None,

@@ -37,6 +37,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 
 from ..config import DEFAULT_CONFIG, YoloConfig
+from ..utils.profiling import span
 from .encode import preprocess_true_boxes
 
 PYTHON_BATCHES = 0
@@ -752,14 +753,21 @@ def prefetch(generator: DataGenerator, n_prefetch: int = 2,
     failure: list = []
 
     def producer():
-        epoch = 0
+        epoch, n = 0, 0     # n: the batch's number, its spans' id
         try:
             while not stop.is_set() and (epochs is None or epoch < epochs):
                 for i in range(len(generator)):
                     if stop.is_set():
                         return
-                    b = generator.get_batch(i)
-                    q.put(b if transform is None else transform(b))
+                    with span("ingest.batch", id=n) as record:
+                        b = generator.get_batch(i)
+                        if record:
+                            record.count(images=len(b["image"]))
+                    if transform is not None:
+                        with span("ingest.place", id=n):
+                            b = transform(b)
+                    q.put(b)
+                    n += 1
                 generator.on_epoch_end()
                 epoch += 1
         except BaseException as e:  # noqa: BLE001 — re-raised in consumer

@@ -25,6 +25,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .nms import top_k
 from .nms_cuda import nms_from_candidates
 
@@ -123,9 +124,12 @@ def detect_fused(raw_outputs: Sequence[torch.Tensor], anchors_grouped,
     raw_outputs: [sbbox, mbbox, lbbox] raw (B, g, g, 3*(5+C)) NHWC grids.
     anchors_grouped: (3, 3, 2) pixel-unit anchors.
     """
-    cand_boxes, cand_scores = select_candidates(
-        raw_outputs, anchors_grouped, num_classes, strides, xyscale,
-        img_size, candidates)
-    return nms_from_candidates(cand_boxes, cand_scores, iou_threshold,
-                               score_threshold, max_per_class, max_total,
-                               clip)
+    device = raw_outputs[0].device
+    with span("candidates", device=device):
+        cand_boxes, cand_scores = select_candidates(
+            raw_outputs, anchors_grouped, num_classes, strides, xyscale,
+            img_size, candidates)
+    with span("nms", device=device):
+        return nms_from_candidates(cand_boxes, cand_scores, iou_threshold,
+                                   score_threshold, max_per_class, max_total,
+                                   clip)

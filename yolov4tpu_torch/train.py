@@ -40,6 +40,7 @@ from .device import resolve_device, to_device_async
 from .losses import yolo_loss
 from .models import network
 from .parallel.mesh import make_mesh, on_rank0, replicate, shard_batch
+from .utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -432,24 +433,36 @@ def _make_grad_and_metrics(num_classes: int, config: YoloConfig):
         return total, comps, new_state
 
     def grad_and_metrics(params, state, batch):
-        if batch["image"].dtype == torch.uint8:
-            # uint8 wire (config.transfer_uint8): normalise on the device.
-            batch = dict(batch, image=batch["image"].to(torch.float32) / 255.0)
-        batch = _maybe_encode_on_device(batch, config, num_classes)
-        mask = batch.get("mask")
-        images = batch["image"]
-        if config.sat_epsilon > 0.0:
-            # Self-adversarial training: one FGSM step on the images that
-            # raises the current loss, then the update on the perturbed batch.
-            img = images.detach().requires_grad_(True)
-            total, _, _ = loss_of(params, state, batch, img, mask)
-            (g_img,) = torch.autograd.grad(total, img)
-            images = torch.clamp(images + config.sat_epsilon
-                                 * torch.sign(g_img), 0.0, 1.0)
+        device = batch["image"].device
+        sat = config.sat_epsilon > 0.0
         live = [t.detach().requires_grad_(True) for t in leaves(params)]
-        total, comps, new_state = loss_of(unflatten(params, live), state,
-                                          batch, images, mask)
-        grads = torch.autograd.grad(total, live)
+        with span("forward", device=device):
+            if batch["image"].dtype == torch.uint8:
+                # uint8 wire (config.transfer_uint8): normalise on the device.
+                batch = dict(batch,
+                             image=batch["image"].to(torch.float32) / 255.0)
+            batch = _maybe_encode_on_device(batch, config, num_classes)
+            mask = batch.get("mask")
+            images = batch["image"]
+            if sat:
+                # Self-adversarial training: one FGSM step on the images
+                # that raises the current loss, then the update on the
+                # perturbed batch.
+                img = images.detach().requires_grad_(True)
+                total, _, _ = loss_of(params, state, batch, img, mask)
+            else:
+                total, comps, new_state = loss_of(
+                    unflatten(params, live), state, batch, images, mask)
+        if sat:
+            with span("backward", device=device):
+                (g_img,) = torch.autograd.grad(total, img)
+            with span("forward", device=device):
+                images = torch.clamp(images + config.sat_epsilon
+                                     * torch.sign(g_img), 0.0, 1.0)
+                total, comps, new_state = loss_of(
+                    unflatten(params, live), state, batch, images, mask)
+        with span("backward", device=device):
+            grads = torch.autograd.grad(total, live)
         metrics = {"loss": total.detach(),
                    **{k: v.detach() for k, v in comps.items()}}
         return unflatten(params, grads), new_state, metrics
@@ -629,6 +642,14 @@ def _local_grads(num_classes: int, config: YoloConfig, masked: bool):
     return local
 
 
+def _update(optimizer, grads) -> None:
+    """``optimizer.step`` over the leaves of ``grads``, in an ``optimizer``
+    span."""
+    flat = leaves(grads)
+    with span("optimizer", device=flat[0].device):
+        optimizer.step(flat)
+
+
 def make_train_step(num_classes: int, config: YoloConfig, optimizer,
                     mesh=None, masked: bool = False):
     """The train step: (params, state, batch) -> (new_state, metrics), with
@@ -654,7 +675,7 @@ def make_train_step(num_classes: int, config: YoloConfig, optimizer,
 
         def step(params, state, batch):
             grads, new_state, metrics = grad_and_metrics(params, state, batch)
-            optimizer.step(leaves(grads))
+            _update(optimizer, grads)
             return new_state, metrics
 
         return step
@@ -664,7 +685,7 @@ def make_train_step(num_classes: int, config: YoloConfig, optimizer,
     def mesh_step(params, state, batch):
         grads, new_state, metrics = _combine(mesh, *local(params, state,
                                                           batch))
-        optimizer.step(leaves(grads))
+        _update(optimizer, grads)
         return new_state, metrics
 
     return mesh_step
@@ -689,7 +710,7 @@ def make_train_step_twophase(num_classes: int, config: YoloConfig,
             torch.cuda.synchronize(mesh.device)
         dist.barrier(group=mesh.group)
         grads, new_state, metrics = _combine(mesh, *parts)
-        optimizer.step(leaves(grads))
+        _update(optimizer, grads)
         return new_state, metrics
 
     return step
@@ -833,6 +854,12 @@ class Trainer:
         validity mask (on a mesh, the masked step then weighs each rank by
         its valid count).  On a mesh ``batch`` is the global batch, or this
         rank's ``_Shard`` of it from ``_place``."""
+        with span("train_step", id=self.global_step) as record:
+            if record:
+                record.count(images=_batch_size(batch))
+            return self._train_step(batch)
+
+    def _train_step(self, batch) -> dict:
         if not isinstance(batch, _Shard):
             batch = tree_map(torch.as_tensor, batch)
             accum = self.config.grad_accum_steps
@@ -893,7 +920,7 @@ class Trainer:
         grads = tree_map(wavg, *gs)
         self.state = tree_map(wavg, *sts)
         metrics = tree_map(wavg, *ms)
-        self.optimizer.step(leaves(grads))
+        _update(self.optimizer, grads)
         self.global_step += 1
         return metrics
 
