@@ -14,11 +14,19 @@ exits non-zero without printing a result:
      the 32-bit word edges (31, 32, 33, 64); the sorted kernel (B=8, C=80,
      K=256, 252, 1024, 32 and 33) on dense, sparse, non-prefix, late-valid
      (loop bound below the last valid index) and empty masks;
+  2b. the conv epilogue kernel (bias + mish/leaky/linear of every conv
+     of the folded forward) against its plain version, bit for bit, on
+     every bf16 bit pattern and at each of the 110 conv output shapes of
+     the 416^2 b64 forward, in bfloat16 and float32; its device time over
+     those 110 (CUDA-graph replays) by activation, against its bound, its
+     eager launches and the eager chain it replaces; nvcc's ptxas report
+     is phase 1's;
   3. the main path through the user's entry points: ``Yolov4`` at full
      depth, 416x416, COCO-80, random darknet weights from a seed with the
      head biases calibrated to ~120 boxes per image, ``predict_batch`` at
      batch 8 in float32 and bfloat16 on float and uint8 input.  Launch
-     counts are zeroed just before and read just after.  Then: the kernel
+     counts are zeroed just before and read just after (one
+     ``conv_epilogue`` launch a conv, 110 a forward).  Then: the kernel
      NMS tail equals the plain tail on the same raw grids, float32 on the
      card (TF32 off) matches the port on the CPU within 1e-3 per box,
      ``predict()`` on a written JPEG returns a DataFrame, the kernel's
@@ -187,10 +195,16 @@ exits non-zero without printing a result:
      ``load_detector``'s on the same batch, one launch.  No script runs
      ``suppress`` (the default NMS is "fast").
 
-Each phase prints its seconds.  The line before the last is one JSON object with each kernel's launches,
-error against its plain version, times (``device_ms`` from CUDA-graph
-replays beside the eager ``ms`` for the NMS kernels) and bound, and phase
-10d's halo exchanges; the last line is
+Every path that runs folded forwards on the card (3, 3c, 7c, 7e, 10d and
+11) has the conv epilogue kernel's launches zeroed just before and read
+just after, and checks one launch a float conv: 110 a forward, 5 an int8
+forward (``counted_epilogues``); the ``kernels`` line sums those counts.
+
+Each phase prints its seconds.  The line before the last is one JSON
+object with each kernel's launches, error against its plain version,
+times (``device_ms`` from CUDA-graph replays beside the eager ``ms`` for
+the NMS kernels) and bound, and phase 10d's halo exchanges; the last line
+is
 ``{"ok": true, "device": {...}}``.  Needs CUDA: without it the script exits
 with status 1 at once.
 """
@@ -209,7 +223,8 @@ import time
 
 import numpy as np
 
-from yolov4tpu_torch.tools.measure import (cuda_ms, graph_ms, kernel_times,
+from yolov4tpu_torch.tools.measure import (cuda_ms, epilogue_shapes,
+                                          graph_ms, kernel_times,
                                           wgrad_shapes)
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -224,6 +239,12 @@ BF16_OPS_PER_S = 989e12   # dense, tensor cores
 # float32 operations of one IoU test against a pivot: 2 min, 2 max, 2 sub,
 # 2 clamps, the product, the union's add and sub, the divide, the compare.
 IOU_OPS = 13
+# Conv epilogues (csrc/conv_epilogue.cu launches) of one folded forward:
+# one a conv, the s2d stem's pair included; of an int8 forward, those of
+# its float convs (the two stem convs and the three heads); of the int8
+# calibration, one folded forward a batch of 8 images (the s2d stem off).
+EPILOGUES = 110
+INT8_EPILOGUES = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -372,6 +393,131 @@ def kernel_phase(torch, nms_cuda):
     check(code != 0, "suppress_rank_launch took K=1025")
     log(f"suppress_rank_launch at K=1025 returns CUDA error {code}")
     return worst
+
+
+def counted_epilogues(torch, fn, forwards, label, per_forward=EPILOGUES):
+    """``fn()`` with the conv epilogue kernel's launches zeroed just before
+    and read just after: ``per_forward`` for each of ``forwards`` forwards
+    on the card, or the check fails.  Returns (fn's result, launches)."""
+    from yolov4tpu_torch.ops import epilogue
+    epilogue.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    n = epilogue.LAUNCHES
+    check(n == per_forward * forwards, f"{label}: conv_epilogue launched {n} "
+          f"times in {forwards} forwards, want {per_forward} a forward")
+    return out, n
+
+
+def epilogue_err(torch, got, want) -> float:
+    """The largest |got - want| where ``want`` is finite (NaN and inf are
+    compared by their bits)."""
+    finite = torch.isfinite(want)
+    if not bool(finite.any()):
+        return 0.0
+    return float((got.float() - want.float()).abs()[finite].max())
+
+
+def epilogue_bits(torch, t):
+    """The bits of a bfloat16 or float32 tensor, in channels_last order."""
+    t = t.contiguous(memory_format=torch.channels_last)
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def epilogue_phase(torch, epilogue, card):
+    """Phase 2b: the conv epilogue kernel against its plain version on
+    every bf16 value and at each of the 110 conv output shapes of the
+    416^2 b64 folded forward, in bfloat16 and float32, bit for bit; then
+    its device time over the 110
+    (one forward's epilogues; CUDA-graph replays, so no host launch cost,
+    and each input read once a replay: 6.9 GB in bf16, past the 50 MB L2)
+    beside its eager launches, its bound (one read and one write of every
+    value at 3.35 TB/s) and the eager chain it replaces, by activation.
+    Returns the times and the largest |kernel - plain| over the checks."""
+    shapes = epilogue_shapes(416, 64)
+    acts = collections.Counter(a for _, a in shapes)
+    check(len(shapes) == 110 and acts == {"mish": 70, "leaky": 37,
+                                          "linear": 3},
+          f"expected 110 epilogues (70 mish, 37 leaky, 3 linear), got "
+          f"{len(shapes)}: {dict(acts)}")
+    # Every bf16 bit pattern, with a bias of -0 that leaves each sum as it
+    # is: the mish table's every entry, and the computed activations.
+    y = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda")
+    y = y.to(torch.int16).view(torch.bfloat16).view(1, 64, 128, 8)
+    y = y.permute(0, 3, 1, 2)
+    b = torch.full((8,), -0.0, dtype=torch.bfloat16, device="cuda")
+    worst = 0.0
+    for act in ("mish", "leaky", "linear"):
+        got = epilogue.conv_epilogue(y, b, act)
+        want = epilogue.conv_epilogue_reference(y, b, act)
+        worst = max(worst, epilogue_err(torch, got, want))
+        nan = torch.isnan(want)
+        gb, wb = epilogue_bits(torch, got), epilogue_bits(torch, want)
+        check(torch.equal(torch.isnan(got), nan)
+              and torch.equal(gb[~nan], wb[~nan]),
+              f"conv_epilogue {act} != plain on the 65,536 bf16 values")
+    log("conv_epilogue bf16: equal to the plain version on all 65,536 bf16 "
+        "values (NaN where it gives NaN), mish, leaky and linear")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cases = []
+        for (n, c, h, w), act in shapes:
+            y = torch.randn((n, h, w, c), generator=gen, device="cuda") * 6.0
+            b = torch.randn((c,), generator=gen, device="cuda")
+            cases.append((y.to(dtype).permute(0, 3, 1, 2), b.to(dtype), act))
+            del y
+        before = epilogue.LAUNCHES
+        for i, (y, b, act) in enumerate(cases):
+            got = epilogue.conv_epilogue(y, b, act)
+            want = epilogue.conv_epilogue_reference(y, b, act)
+            check(got.is_contiguous(memory_format=torch.channels_last),
+                  f"epilogue {i}: the output is not channels_last")
+            worst = max(worst, epilogue_err(torch, got, want))
+            gb, wb = epilogue_bits(torch, got), epilogue_bits(torch, want)
+            check(torch.equal(gb, wb),
+                  f"conv_epilogue {name} != plain at epilogue {i} "
+                  f"{tuple(y.shape)} {act}: {int((gb != wb).sum())} values "
+                  f"differ")
+            del got, want, gb, wb
+        torch.cuda.synchronize()
+        check(epilogue.LAUNCHES - before == 110,
+              f"{epilogue.LAUNCHES - before} launches for 110 epilogues")
+        log(f"conv_epilogue {name}: equal to the plain version bit for bit "
+            f"at the 110 shapes of the 416^2 b64 forward")
+
+        def run(fn, subset):
+            return lambda: [fn(y, b, act) for y, b, act in subset]
+
+        split = {"all": cases}
+        split.update({a: [t for t in cases if t[2] == a] for a in acts})
+        times = {}
+        for key, subset in split.items():
+            nbytes = 2 * sum(y.numel() for y, _, _ in subset) \
+                * cases[0][0].element_size()
+            ms = graph_ms(run(epilogue.conv_epilogue, subset), n=1)
+            times[key] = {"ms": ms, "bytes": nbytes,
+                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            log(f"conv_epilogue {name} {key} ({len(subset)} launches, "
+                f"{nbytes / 1e9:.3f} GB): kernel {ms:.3f} ms device, "
+                f"{nbytes / ms / 1e6:.0f} GB/s, bound "
+                f"{times[key]['bound_ms']:.3f} ms, at "
+                f"{times[key]['bound_ms'] / ms:.1%} of it ({card})")
+        eager = cuda_ms(run(epilogue.conv_epilogue, cases), n=1, repeats=3)
+        plain = cuda_ms(run(epilogue.conv_epilogue_reference, cases), n=1,
+                        repeats=3, warmup=1)
+        t = times["all"]
+        log(f"conv_epilogue {name}, one forward's 110 epilogues: kernel "
+            f"{t['ms']:.3f} ms device, {eager:.3f} ms in eager launches; "
+            f"eager chain (the plain version) {plain:.3f} ms; bound "
+            f"{t['bound_ms']:.3f} ms (bytes); kernel / chain "
+            f"{t['ms'] / plain:.3f} ({card})")
+        out[name] = dict(times, eager_ms=eager, plain_ms=plain)
+        del cases
+        torch.cuda.empty_cache()
+    log(f"conv_epilogue: largest |kernel - plain| over every check {worst!r}")
+    out["max_abs_err"] = worst
+    return out
 
 
 def nms_inputs(torch, nms_cuda, model, images):
@@ -778,8 +924,9 @@ def underscored_classes():
 
 def evaluate(torch, nms_cuda, model, anno, folder, out, plot=True):
     """export_gt -> export_prediction (b8) -> eval_map into ``out``; checks
-    the launches, the files and the mAP.  Returns (mAP, seconds of the
-    export, detections written, the sorted kernel's launches)."""
+    the launches (one sorted-kernel launch and 110 conv epilogues a batch),
+    the files and the mAP.  Returns (mAP, seconds of the export,
+    detections written, the sorted kernel's launches, the epilogues')."""
     import shutil
     shutil.rmtree(out, ignore_errors=True)
     d = {k: str(out / k) for k in ("gt", "pred", "json", "out")}
@@ -787,9 +934,10 @@ def evaluate(torch, nms_cuda, model, anno, folder, out, plot=True):
     model.export_gt(str(anno), d["gt"])
     nms_cuda.SUPPRESS_LAUNCHES = 0
     t0 = time.perf_counter()
-    model.export_prediction(str(anno), d["pred"], str(folder), bs=8,
-                            verbose=False)
-    torch.cuda.synchronize()
+    _, epilogues = counted_epilogues(
+        torch, lambda: model.export_prediction(
+            str(anno), d["pred"], str(folder), bs=8, verbose=False),
+        -(-n_images // 8), "export_prediction")
     export_s = time.perf_counter() - t0
     launches = nms_cuda.SUPPRESS_LAUNCHES
     check(launches == -(-n_images // 8), f"export_prediction launched the "
@@ -805,13 +953,14 @@ def evaluate(torch, nms_cuda, model, anno, folder, out, plot=True):
     check((out / "out" / "output.txt").exists(), "no output.txt")
     if plot:
         check((out / "out" / "mAP.png").exists(), "no mAP.png")
-    return m_ap, export_s, n_det, launches
+    return m_ap, export_s, n_det, launches, epilogues
 
 
 def eval_phase(torch, nms_cuda, wpath, params, folder, card):
     """Phase 3c: the evaluation path with nms_impl="pallas" at score 0.05,
     on the uint8 wire and with letterbox, then the self-consistency run.
-    Returns the sorted kernel's launches over the path."""
+    Returns the sorted kernel's and the conv epilogues' launches over the
+    path."""
     from yolov4tpu_torch.api import Yolov4
     from yolov4tpu_torch.config import DEFAULT_CONFIG
     import importlib.util
@@ -824,7 +973,7 @@ def eval_phase(torch, nms_cuda, wpath, params, folder, card):
         log("matplotlib is not installed: eval_map runs with plot=False")
     base = dataclasses.replace(DEFAULT_CONFIG, nms_impl="pallas",
                                score_threshold=0.05)
-    total = 0
+    total = epilogues = 0
     models = {}
     for name, change in (("uint8", dict(transfer_uint8=True)),
                          ("letterbox", dict(letterbox=True))):
@@ -833,9 +982,10 @@ def eval_phase(torch, nms_cuda, wpath, params, folder, card):
         model.sync_params(params, model.state)
         models[name] = model
         out = SCRATCH / "eval" / name
-        m_ap, export_s, n_det, launches = evaluate(torch, nms_cuda, model,
-                                                   anno, folder, out, plot)
+        m_ap, export_s, n_det, launches, n_epi = evaluate(
+            torch, nms_cuda, model, anno, folder, out, plot)
         total += launches
+        epilogues += n_epi
         rerun = []
         for _ in range(2):
             t0 = time.perf_counter()
@@ -861,14 +1011,16 @@ def eval_phase(torch, nms_cuda, wpath, params, folder, card):
             lines.append(f"{txt.stem}.jpg {' '.join(objs)}\n")
     self_anno = SCRATCH / "eval" / "self_annotations.txt"
     self_anno.write_text("".join(lines))
-    m_ap, _, n_det, launches = evaluate(torch, nms_cuda, model, self_anno,
-                                        folder, SCRATCH / "eval" / "self",
-                                        plot=False)
+    m_ap, _, n_det, launches, n_epi = evaluate(
+        torch, nms_cuda, model, self_anno, folder, SCRATCH / "eval" / "self",
+        plot=False)
     total += launches
+    epilogues += n_epi
     check(m_ap == 1.0, f"self-consistency mAP {m_ap!r} != 1.0")
     log(f"evaluation self-consistency: {n_det} detections as ground truth "
-        f"over {len(lines)} images, mAP {m_ap!r}")
-    return total
+        f"over {len(lines)} images, mAP {m_ap!r}; {epilogues} conv "
+        f"epilogue launches over the evaluations, 110 a batch")
+    return total, epilogues
 
 
 # ---------------------------------------------------------------------------
@@ -1857,11 +2009,12 @@ def int8_phase(torch, nms_cuda, wpath, card):
     f32 = u8.astype(np.float32) / 255.0
     u64 = scene(13, 64)
     nms_cuda.LAUNCHES = 0
-    outs = {"int8 f32 b8": q32.predict_batch(f32),
-            "int8 bf16 b8": q8.predict_batch(u8),
-            "int8 bf16 b64": q8.predict_batch(u64),
-            "int8-bf16 dataflow b8": qb.predict_batch(u8)}
-    torch.cuda.synchronize()
+    outs, epilogues = counted_epilogues(torch, lambda: {
+        "int8 f32 b8": q32.predict_batch(f32),
+        "int8 bf16 b8": q8.predict_batch(u8),
+        "int8 bf16 b64": q8.predict_batch(u64),
+        "int8-bf16 dataflow b8": qb.predict_batch(u8)}, 4, "int8 c",
+        INT8_EPILOGUES)
     launches = nms_cuda.LAUNCHES
     check(launches == len(outs), f"suppress_rank launched {launches} times "
           f"in {len(outs)} int8 predict_batch calls")
@@ -1870,7 +2023,8 @@ def int8_phase(torch, nms_cuda, wpath, card):
               and int(out[3].min()) > 0, f"{name}: no detections or "
               f"non-finite outputs ({out[3].tolist()})")
     log(f"int8 c: {len(outs)} int8 predict_batch calls, suppress_rank "
-        f"launched {launches} times; valid " + "; ".join(
+        f"launched {launches} times, conv_epilogue {epilogues} (the float "
+        f"convs); valid " + "; ".join(
             f"{k} {v[3].tolist()[:8]}" for k, v in outs.items()))
     # The card's f32 int8 forward against the CPU's, same int8 params and
     # scales, one image.
@@ -1941,7 +2095,8 @@ def int8_phase(torch, nms_cuda, wpath, card):
         log(f"int8 d:   {ms:.3f} ms  {name[:110]}")
     del x
     return {"f16": f16, "q8": q8, "q32": q32, "u8": u8, "f32": f32,
-            "forward": rows, "split": dict(split), "launches": launches}
+            "forward": rows, "split": dict(split), "launches": launches,
+            "epilogues": epilogues}
 
 
 def serving_phase(torch, nms_cuda, models, card):
@@ -1949,10 +2104,11 @@ def serving_phase(torch, nms_cuda, models, card):
     float bf16 "fast" program (b8, float32 input), the int8 "fast" one
     (b8, uint8 input) and the float "pallas" one (b8): each loaded
     artifact equals the live ``predict_batch`` (valid equal, boxes and
-    scores within 1e-5) and launches its kernel once a call; then a
-    package-free ("cuda", "cpu") "xla" artifact at b1 float32 (top 64
-    candidates a class) runs on both devices within 1e-3 per box.  Returns
-    the kernels' launches."""
+    scores within 1e-5) and launches its NMS kernel once a call and the
+    conv epilogue kernel once a float conv; then a package-free ("cuda",
+    "cpu") "xla" artifact at b1 float32 (top 64 candidates a class), which
+    launches no kernel of the port, runs on both devices within 1e-3 per
+    box.  Returns the kernels' launches."""
     import copy
     from yolov4tpu_torch import serving
     f16, q8, q32, u8, f32 = (models[k] for k in
@@ -1968,13 +2124,14 @@ def serving_phase(torch, nms_cuda, models, card):
     xla.dequantize()
     root = SCRATCH / "serving"
     root.mkdir(parents=True, exist_ok=True)
-    launches = {"suppress_rank": 0, "suppress": 0}
-    for name, model, images, kw, counter in (
-            ("float bf16 'fast' b8 float32", f16, f32, {}, "LAUNCHES"),
+    launches = {"suppress_rank": 0, "suppress": 0, "conv_epilogue": 0}
+    for name, model, images, kw, counter, per_forward in (
+            ("float bf16 'fast' b8 float32", f16, f32, {}, "LAUNCHES",
+             EPILOGUES),
             ("int8 bf16 'fast' b8 uint8", q8, u8,
-             {"input_dtype": "uint8"}, "LAUNCHES"),
+             {"input_dtype": "uint8"}, "LAUNCHES", INT8_EPILOGUES),
             ("float bf16 'pallas' b8 float32", pallas, f32, {},
-             "SUPPRESS_LAUNCHES")):
+             "SUPPRESS_LAUNCHES", EPILOGUES)):
         path = root / "artifact.pt2"
         total, exported = timed(torch, lambda: serving.export_detector(
             model, str(path), batch_size=8, **kw))
@@ -1982,8 +2139,9 @@ def serving_phase(torch, nms_cuda, models, card):
             exported, str(root / "again.pt2")))
         load, detect = timed(torch, lambda: serving.load_detector(str(path)))
         setattr(nms_cuda, counter, 0)
-        got = detect(images)
-        torch.cuda.synchronize()
+        got, n = counted_epilogues(torch, lambda: detect(images), 1,
+                                   f"serving: {name}", per_forward)
+        launches["conv_epilogue"] += n
         calls = getattr(nms_cuda, counter)
         want = model.predict_batch(images)
         check(calls == 1, f"{name}: the loaded artifact launched its kernel "
@@ -2003,8 +2161,9 @@ def serving_phase(torch, nms_cuda, models, card):
             rates.append(80 / secs)
         log(f"serving: {name}: export {total - save:.2f} s, save {save:.2f} "
             f"s, {file_mb(path):.1f} MB, load {load:.2f} s; loaded == "
-            f"predict_batch (valid {got[3].tolist()}), kernel launched once "
-            f"a call; {rates[0]:.1f} img/s loaded vs {rates[1]:.1f} "
+            f"predict_batch (valid {got[3].tolist()}), NMS kernel launched "
+            f"once a call, conv_epilogue {n} times; {rates[0]:.1f} img/s "
+            f"loaded vs {rates[1]:.1f} "
             f"predict_batch ({card})")
         del exported, detect
     path = root / "package_free.pt2"
@@ -2013,7 +2172,9 @@ def serving_phase(torch, nms_cuda, models, card):
     check(not [n for n in exported.graph.nodes
                if "yolov4tpu" in str(n.target)],
           "the two-platform artifact holds an op of the port")
-    on_card = serving.load_detector(str(path))(f32[:1])
+    on_card, _ = counted_epilogues(
+        torch, lambda: serving.load_detector(str(path))(f32[:1]), 1,
+        "serving: the two-platform artifact", 0)
     on_cpu = serving.load_detector(str(path), device="cpu")(f32[:1])
     want = xla.predict_batch(f32[:1])
     check(torch.equal(on_card[3], want[3]) and all(
@@ -2023,7 +2184,8 @@ def serving_phase(torch, nms_cuda, models, card):
     dev = match_detections(numpy_outputs(on_card, 0), numpy_outputs(on_cpu, 0),
                            1e-3)
     log(f"serving: package-free ('cuda', 'cpu') 'xla' f32 b1 artifact: no "
-        f"op of the port, {file_mb(path):.1f} MB, export + save "
+        f"op of the port (the plain epilogue, no conv_epilogue launch on "
+        f"the card), {file_mb(path):.1f} MB, export + save "
         f"{total:.2f} s; card == predict_batch; card vs CPU "
         f"{int(want[3][0])} detections, max deviation {dev:.3g} (limit "
         f"1e-3)")
@@ -3360,8 +3522,9 @@ def spatial_nccl_phase(torch, busy, card):
     """Phase 10d (a), NCCL at world size 1 in this process:
     ``distribute(1, axis="spatial")`` (float32, TF32 off) bit-equal to a
     plain facade with the s2d stem off (the axis turns it off, as the JAX
-    package's does) at b8 and b1, with no halo exchange and one
-    ``suppress_rank`` launch a call.  Returns the launches."""
+    package's does) at b8 and b1, with no halo exchange, one
+    ``suppress_rank`` launch and 110 conv epilogues a call.  Returns the
+    launches of both kernels."""
     from yolov4tpu_torch.parallel import spatial
 
     u8 = scene(4, 8)
@@ -3372,22 +3535,25 @@ def spatial_nccl_phase(torch, busy, card):
           and meshed.config.s2d_stem, f"distribute(1, spatial): "
           f"{meshed._mesh}")
     spatial.HALO_EXCHANGES = 0
-    launches = 0
+    launches = epilogues = 0
     for b in (8, 1):
-        got, n = counted_predict(torch, "LAUNCHES", meshed, u8[:b])
+        (got, n), n_epi = counted_epilogues(
+            torch, lambda: counted_predict(torch, "LAUNCHES", meshed, u8[:b]),
+            1, f"spatial world size 1 b{b}")
         check(n == 1, f"spatial b{b}: LAUNCHES {n} in one predict_batch")
         launches += n
+        epilogues += n_epi
         want = plain.predict_batch(u8[:b])
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"spatial world size 1 b{b} != the plain facade")
         log(f"10d NCCL world size 1, spatial b{b} float32: bit-equal to the "
             f"plain facade without the s2d stem, valid {got[3].tolist()}, "
-            f"one suppress_rank launch")
+            f"one suppress_rank launch, {n_epi} conv_epilogue launches")
     check(spatial.HALO_EXCHANGES == 0,
           f"{spatial.HALO_EXCHANGES} halo exchanges on one rank")
     del plain, meshed
     torch.cuda.empty_cache()
-    return launches
+    return launches, epilogues
 
 
 SPATIAL_FORWARD_EXCHANGES = 47    # 37 3x3 convs, 7 downsamples, 3 pools
@@ -3396,15 +3562,18 @@ SPATIAL_BATCHES = (1, 2)
 
 
 def spatial_counts(torch, nms_cuda, spatial, gathers, counter, fn):
-    """``fn()`` with the launches of ``nms_cuda``'s ``counter``, the
-    ``all_gather`` calls and the halo counters zeroed just before and read
-    just after: (outputs, counts)."""
+    """``fn()`` with the launches of ``nms_cuda``'s ``counter`` and of the
+    conv epilogue kernel, the ``all_gather`` calls and the halo counters
+    zeroed just before and read just after: (outputs, counts)."""
+    from yolov4tpu_torch.ops import epilogue
     setattr(nms_cuda, counter, 0)
+    epilogue.LAUNCHES = 0
     gathers[0] = 0
     spatial.HALO_EXCHANGES = spatial.HALO_ROWS = spatial.HALO_BYTES = 0
     out = fn()
     torch.cuda.synchronize()
     return out, {"launches": getattr(nms_cuda, counter),
+                 "epilogues": epilogue.LAUNCHES,
                  "all_gather": gathers[0],
                  "exchanges": spatial.HALO_EXCHANGES,
                  "rows": spatial.HALO_ROWS, "bytes": spatial.HALO_BYTES}
@@ -3590,6 +3759,9 @@ def spatial_gloo_phase(torch, busy, card):
             want = 0 if key == "bfloat16/raw" else 1
             check(st["launches"] == want, f"rank {rk['rank']} {key}: "
                   f"{st['launches']} NMS kernel launches, want {want}")
+            want = INT8_EPILOGUES if key.startswith("int8") else EPILOGUES
+            check(st["epilogues"] == want, f"rank {rk['rank']} {key}: "
+                  f"{st['epilogues']} conv_epilogue launches, want {want}")
     for key in ranks[0]["stats"]:
         rows = sum(rk["stats"][key]["rows"] for rk in ranks)
         check(rows == SPATIAL_BOUNDARY_ROWS, f"{key}: {rows} halo rows "
@@ -3646,7 +3818,8 @@ def spatial_gloo_phase(torch, busy, card):
         f"pallas b2 within {worst['pallas']:.3g}; float32 b2 against the "
         f"default facade (s2d stem on) within "
         f"{worst['float32, s2d stem on']:.3g} (limit 1e-3, classes and "
-        f"counts equal); one NMS kernel launch a call on every rank; "
+        f"counts equal); one NMS kernel launch a call and one "
+        f"conv_epilogue launch a float conv on every rank; "
         f"workers {workers_s:.1f} s ({card})")
     log(f"10d int8 b2 against the default int8 facade (s2d stem on), "
         f"information: {sum(s2d_int8)} of {2 * len(outs)} rank-images "
@@ -3685,6 +3858,8 @@ def spatial_gloo_phase(torch, busy, card):
                                  if not k.startswith("pallas")),
             "suppress": sum(rk["stats"]["pallas/b2"]["launches"]
                             for rk in ranks),
+            "conv_epilogue": sum(st["epilogues"] for rk in ranks
+                                 for st in rk["stats"].values()),
             "halo_exchanges": sum(st["exchanges"] for rk in ranks
                                   for st in rk["stats"].values()),
             "rows": st[0]["rows"] + st[1]["rows"],
@@ -3705,7 +3880,7 @@ def distributed_phase(torch, busy, folder, lines, card):
     launches, rates = nccl_inference_phase(torch, busy, card)
     log(f"phase 10a: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    spatial_one = spatial_nccl_phase(torch, busy, card)
+    spatial_one, spatial_epilogues = spatial_nccl_phase(torch, busy, card)
     dist.destroy_process_group()
     t_spatial = time.perf_counter() - t
     t = time.perf_counter()
@@ -3721,6 +3896,7 @@ def distributed_phase(torch, busy, folder, lines, card):
                               + vid["suppress_rank"] + spatial_one
                               + spatial["suppress_rank"]),
             "suppress": launches["SUPPRESS_LAUNCHES"] + spatial["suppress"],
+            "conv_epilogue": spatial_epilogues + spatial["conv_epilogue"],
             "rates": rates, "gather_ms": gloo["gather_ms"],
             "frames_s": vid["frames_s"], "spatial": spatial}
 
@@ -3769,9 +3945,10 @@ def cli_inference_phase(torch, busy, classes, jpg, card):
     float32 (TF32 off) and int8, each printed table within 1e-3 per box of
     the facade's ``predict(jpg, plot_img=False)`` (classes and counts
     equal; the int8 facade quantized on the same image), one
-    ``suppress_rank`` launch a call; then one cold run as a new process
-    (``python -m``), its wall time from start to the table.  Returns
-    (launches, seconds of the cold run)."""
+    ``suppress_rank`` launch a call and 110 conv epilogues a forward (int8:
+    its calibration forward's 110 and its own 5); then one cold run as a
+    new process (``python -m``), its wall time from start to the table.
+    Returns (launches, epilogue launches, seconds of the cold run)."""
     import cv2
 
     from yolov4tpu_torch.api import Yolov4
@@ -3782,15 +3959,18 @@ def cli_inference_phase(torch, busy, classes, jpg, card):
     h, w = cv2.imread(str(jpg)).shape[:2]
     base = ["--weights", str(busy), "--image", str(jpg), "--classes",
             str(classes), "--device", "cuda"]
-    launches = 0
+    launches = epilogues = 0
     tables = {}
-    for label, flags, dtype in (("bf16", ["--bf16"], "bfloat16"),
-                                ("float32", [], "float32"),
-                                ("int8", ["--int8"], "bfloat16")):
+    for label, flags, dtype, per_run in (
+            ("bf16", ["--bf16"], "bfloat16", EPILOGUES),
+            ("float32", [], "float32", EPILOGUES),
+            ("int8", ["--int8"], "bfloat16", EPILOGUES + INT8_EPILOGUES)):
         nms_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
-        _, text = captured(inference.main, base + flags)
-        torch.cuda.synchronize()
+        (_, text), n_epi = counted_epilogues(
+            torch, lambda: captured(inference.main, base + flags), 1,
+            f"inference.py {label}", per_run)
+        epilogues += n_epi
         seconds = time.perf_counter() - t0
         n = nms_cuda.LAUNCHES
         check(n == 1, f"inference.py {label}: suppress_rank launched {n} "
@@ -3810,7 +3990,8 @@ def cli_inference_phase(torch, busy, classes, jpg, card):
                                table_detections(want, h, w), 1e-3)
         log(f"11a inference.py {label}: {len(got)} rows printed, equal to "
             f"the facade's predict() within {dev:.3g} (limit 1e-3), 1 "
-            f"suppress_rank launch; {seconds:.2f} s in-process ({card})")
+            f"suppress_rank launch, {n_epi} conv_epilogue launches; "
+            f"{seconds:.2f} s in-process ({card})")
 
     # The user's start: a new process, the kernel's .so already built into
     # build/torch_kernels/ by phase 1 (the digest cache), so no nvcc.
@@ -3828,7 +4009,7 @@ def cli_inference_phase(torch, busy, classes, jpg, card):
         f"--bf16 in a new process: {cold:.2f} s from start to the table "
         f"(the kernel's .so cached), rows within {dev:.3g} of the "
         f"in-process run ({card})")
-    return launches, cold
+    return launches, epilogues, cold
 
 
 def cli_eval_phase(torch, busy, classes, folder, card):
@@ -3837,7 +4018,8 @@ def cli_eval_phase(torch, busy, classes, folder, card):
     detections, its printed mAP line equal to the same
     ``export_gt`` -> ``export_prediction(bs=8)`` -> ``eval_map`` calls made
     directly on a facade with the same config; one ``suppress_rank``
-    launch a batch.  Returns the launches."""
+    launch and 110 conv epilogues a batch.  Returns the launches of both
+    kernels."""
     import importlib.util
     import shutil
 
@@ -3865,7 +4047,7 @@ def cli_eval_phase(torch, busy, classes, folder, card):
     anno.write_text("".join(lines))
     batches = -(-len(lines) // 8)
     plot = importlib.util.find_spec("matplotlib") is not None
-    launches = 0
+    launches = epilogues = 0
     for label, flags in (("stretch", []), ("letterbox", ["--letterbox"])):
         out = SCRATCH / "cli_eval" / label
         shutil.rmtree(out, ignore_errors=True)
@@ -3876,8 +4058,10 @@ def cli_eval_phase(torch, busy, classes, folder, card):
             argv.append("--no-plot")
         nms_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
-        _, text = captured(eval_cli.main, argv)
-        torch.cuda.synchronize()
+        (_, text), n_epi = counted_epilogues(
+            torch, lambda: captured(eval_cli.main, argv), batches,
+            f"eval.py {label}")
+        epilogues += n_epi
         seconds = time.perf_counter() - t0
         n = nms_cuda.LAUNCHES
         check(n == batches, f"eval.py {label}: suppress_rank launched {n} "
@@ -3902,8 +4086,9 @@ def cli_eval_phase(torch, busy, classes, folder, card):
               f"{printed['mAP']}, want one in (0, 1)")
         log(f"11b eval.py --bs 8 {label}: mAP {printed['mAP']!r} over "
             f"{len(printed['per_class'])} classes, equal to the direct "
-            f"calls; {n} suppress_rank launches; {seconds:.2f} s ({card})")
-    return launches
+            f"calls; {n} suppress_rank launches, {n_epi} conv_epilogue "
+            f"launches; {seconds:.2f} s ({card})")
+    return launches, epilogues
 
 
 def cli_train_phase(torch, busy, classes, folder, card, per_step):
@@ -3963,8 +4148,8 @@ def cli_serving_phase(torch, busy, classes, jpg, card):
     """Phase 11d: ``examples/export_serving.py export --bf16 --uint8 --batch
     8``, then ``run`` on a JPEG: its printed detections exactly those of
     ``load_detector`` on the same artifact and the same batch built the
-    same way; one ``suppress_rank`` launch (the artifact's custom op).
-    Returns the launches."""
+    same way; one ``suppress_rank`` launch and 110 ``conv_epilogue``
+    launches (the artifact's custom ops).  Returns the launches of both."""
     import cv2
 
     from yolov4tpu_torch import serving
@@ -3983,10 +4168,10 @@ def cli_serving_phase(torch, busy, classes, jpg, card):
           f"export printed {text[-300:]!r}")
     nms_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
-    _, text = captured(export_serving.main, [
-        "run", "--artifact", str(artifact), "--image", str(jpg),
-        "--device", "cuda"])
-    torch.cuda.synchronize()
+    (_, text), epilogues = counted_epilogues(
+        torch, lambda: captured(export_serving.main, [
+            "run", "--artifact", str(artifact), "--image", str(jpg),
+            "--device", "cuda"]), 1, "export_serving.py run")
     run_s = time.perf_counter() - t0
     n = nms_cuda.LAUNCHES
     check(n == 1, f"export_serving.py run: suppress_rank launched {n} times")
@@ -4012,9 +4197,9 @@ def cli_serving_phase(torch, busy, classes, jpg, card):
     artifact.unlink()
     log(f"11d export_serving.py export --bf16 --uint8 --batch 8: "
         f"{mb:.1f} MB in {export_s:.2f} s; run: {nv} detections printed, "
-        f"equal to load_detector's, 1 suppress_rank launch, {run_s:.2f} s "
-        f"({card})")
-    return n
+        f"equal to load_detector's, 1 suppress_rank launch, {epilogues} "
+        f"conv_epilogue launches, {run_s:.2f} s ({card})")
+    return n, epilogues
 
 
 def cli_phase(torch, busy, folder, card, per_step):
@@ -4026,20 +4211,26 @@ def cli_phase(torch, busy, folder, card, per_step):
     classes = SCRATCH / "coco_classes_underscored.txt"
     jpg = folder / "train1.jpg"
     t = time.perf_counter()
-    launches, cold = cli_inference_phase(torch, busy, classes, jpg, card)
+    launches, epilogues, cold = cli_inference_phase(torch, busy, classes,
+                                                    jpg, card)
     log(f"phase 11a: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    launches += cli_eval_phase(torch, busy, classes, folder, card)
+    n, n_epi = cli_eval_phase(torch, busy, classes, folder, card)
+    launches += n
+    epilogues += n_epi
     log(f"phase 11b: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     wgrad = cli_train_phase(torch, busy, classes, folder, card, per_step)
     log(f"phase 11c: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    launches += cli_serving_phase(torch, busy, classes, jpg, card)
+    n, n_epi = cli_serving_phase(torch, busy, classes, jpg, card)
+    launches += n
+    epilogues += n_epi
     log(f"phase 11d: {time.perf_counter() - t:.1f} s")
     log("phase 11: no script runs the sorted kernel `suppress` (the default "
         "nms_impl is \"fast\"); its totals are the earlier phases'")
-    return {"suppress_rank": launches, "wgrad": wgrad, "cold_s": cold}
+    return {"suppress_rank": launches, "wgrad": wgrad, "cold_s": cold,
+            "conv_epilogue": epilogues}
 
 
 def main() -> int:
@@ -4055,7 +4246,7 @@ def main() -> int:
     from yolov4tpu_torch import weights
     from yolov4tpu_torch.api import Yolov4
     from yolov4tpu_torch.config import DEFAULT_CONFIG
-    from yolov4tpu_torch.ops import build, nms_cuda, wgrad_cuda
+    from yolov4tpu_torch.ops import build, epilogue, nms_cuda, wgrad_cuda
 
     # Every float32 comparison below runs in full float32: cuDNN would
     # otherwise run float32 convolutions in TF32.
@@ -4079,7 +4270,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    sources = ("suppress_rank", "suppress", "wgrad_3x3")
+    sources = ("suppress_rank", "suppress", "wgrad_3x3", "conv_epilogue")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         sos = list(pool.map(build.build, sources))   # one nvcc each
     log(f"built {', '.join(so.name for so in sos)} in "
@@ -4094,6 +4285,8 @@ def main() -> int:
     worst = kernel_phase(torch, nms_cuda)
     sorted_worst = sorted_kernel_phase(torch, nms_cuda)
     phase_done("2 (NMS kernels vs plain)")
+    epi = epilogue_phase(torch, epilogue, card)
+    phase_done("2b (conv epilogue kernel vs plain)")
 
     # --- 3. the main path ------------------------------------------------
     SCRATCH.mkdir(parents=True, exist_ok=True)
@@ -4117,16 +4310,16 @@ def main() -> int:
         f"calibrated delta {delta:.4f}")
 
     nms_cuda.LAUNCHES = 0
-    outs = {"f32 float": m32.predict_batch(f32),
-            "f32 uint8": m32.predict_batch(u8),
-            "bf16 float": m16.predict_batch(f32),
-            "bf16 uint8": m16.predict_batch(u8)}
-    torch.cuda.synchronize()
+    outs, epilogues = counted_epilogues(torch, lambda: {
+        "f32 float": m32.predict_batch(f32),
+        "f32 uint8": m32.predict_batch(u8),
+        "bf16 float": m16.predict_batch(f32),
+        "bf16 uint8": m16.predict_batch(u8)}, 4, "main path")
     launches = nms_cuda.LAUNCHES
     check(launches >= len(outs), f"suppress_rank launched {launches} times "
           f"in {len(outs)} predict_batch calls")
     log(f"main path: {len(outs)} predict_batch calls at b8, suppress_rank "
-        f"launched {launches} times")
+        f"launched {launches} times, conv_epilogue {epilogues} times")
     for name, out in outs.items():
         boxes, scores, classes, valid = out
         check(tuple(boxes.shape) == (8, 100, 4) and boxes.is_cuda,
@@ -4209,7 +4402,8 @@ def main() -> int:
     # --- 3c. the evaluation path -----------------------------------------
     folder = SCRATCH / "train"
     lines = write_train_set(folder)
-    eval_launches = eval_phase(torch, nms_cuda, wpath, params, folder, card)
+    eval_launches, eval_epilogues = eval_phase(torch, nms_cuda, wpath,
+                                               params, folder, card)
     torch.cuda.empty_cache()
     phase_done("3c (evaluation)")
 
@@ -4240,6 +4434,7 @@ def main() -> int:
     models = int8_phase(torch, nms_cuda, wpath, card)
     served = serving_phase(torch, nms_cuda, models, card)
     int8_launches = models["launches"]
+    int8_epilogues = models["epilogues"]
     del models
     torch.cuda.empty_cache()
     phase_done("7 (int8 and serving)")
@@ -4309,7 +4504,28 @@ def main() -> int:
                 "library_eager_ms": wg["library_eager_ms"],
                 # Device times per b8 bf16 step at the multi-scale range's
                 # ends (phase 8f); the keys above are at 416^2.
-                "per_step_by_side": ingested["wgrad_by_size"]}]
+                "per_step_by_side": ingested["wgrad_by_size"]},
+               {"name": "conv_epilogue", "route": "cuda",
+                "source": "yolov4tpu_torch/csrc/conv_epilogue.cu",
+                "replaces": None,
+                # the folded forwards' launches, each path's counted from
+                # zero around its run (phase 2b's checks and timings left
+                # out); the spatial ranks' included
+                "launches": (epilogues + eval_epilogues
+                             + int8_epilogues + served["conv_epilogue"]
+                             + served10["conv_epilogue"]
+                             + cli["conv_epilogue"]),
+                "max_abs_err": epi["max_abs_err"],
+                # one 416^2 b64 forward's 110 epilogues, bf16: device time
+                # (graph_ms), eager launches, the eager chain, the bound
+                "device_ms": epi["bf16"]["all"]["ms"],
+                "ms": epi["bf16"]["eager_ms"],
+                "plain_ms": epi["bf16"]["plain_ms"],
+                "bound_ms": epi["bf16"]["all"]["bound_ms"],
+                "bound_by": "bytes", "library_ms": None,
+                "f32": {"device_ms": epi["f32"]["all"]["ms"],
+                        "plain_ms": epi["f32"]["plain_ms"],
+                        "bound_ms": epi["f32"]["all"]["bound_ms"]}}]
     spatial = served10["spatial"]
     # Phase 10d's halo exchanges (plain torch copies and all_gather, no
     # kernel of their own): both ranks' count, per forward, and the rows

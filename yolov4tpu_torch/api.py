@@ -38,6 +38,7 @@ from .device import resolve_device, to_device_async
 from .models import head, network
 from .ops.detect import detect_fused
 from .ops.nms import combined_nms
+from .ops import epilogue
 from .ops.nms_cuda import combined_nms_sorted
 from .data.pipeline import letterbox_resize
 from .parallel import spatial
@@ -80,6 +81,9 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
     (``parallel.spatial``; ``cfg.s2d_stem`` must be off): ``images`` are
     then this rank's rows (``spatial.local_rows``), the forward runs
     sharded, and every rank decodes and suppresses the gathered grids.
+
+    The ``forward`` span counts ``convs``, the epilogues the forward ran,
+    and ``epilogue_launches``, those of them that took the CUDA kernel.
     """
     if cfg.nms_impl not in ("fast", "xla", "pallas"):
         raise ValueError(f"unknown nms_impl {cfg.nms_impl!r}")
@@ -95,11 +99,15 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
 
     @torch.inference_mode()
     def infer_fn(folded, images, iou_t, score_t):
-        with span("forward", device=images.device):
+        with span("forward", device=images.device) as record:
+            calls, launches = epilogue.CALLS, epilogue.LAUNCHES
             if images.dtype == torch.uint8:
                 images = images.to(torch.float32) / 255.0
             raws = apply(folded, images, num_classes, compute_dtype,
                          csp_repeats=cfg.csp_repeats, s2d_stem=cfg.s2d_stem)
+            if record:
+                record.count(convs=epilogue.CALLS - calls,
+                             epilogue_launches=epilogue.LAUNCHES - launches)
         if cfg.nms_impl == "fast":
             return detect_fused(
                 raws, anchors, num_classes, strides, xyscale, img_size[0],

@@ -18,6 +18,14 @@ Layer semantics (reference custom_layers.py:5-31):
     training (``apply(train=True)``), folded into conv weight + bias for
     inference (``fold_bn`` + ``apply_folded``);
   - mish via the single-exp identity, leaky-relu alpha=0.1.
+
+The folded forward (``apply_folded``) ends every conv in
+``ops.epilogue.conv_epilogue``: bias add and activation in one
+hand-written CUDA pass on the card (``csrc/conv_epilogue.cu``), bit for
+bit the eager ``_activate(y + _bias(b))`` that it runs on the CPU and
+that ``apply`` (training, and BN inference) keeps.  ``_mish``,
+``_activate`` and ``_bias`` live in ``ops.epilogue`` beside the kernel's
+wrapper.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.epilogue import _activate, _bias, _mish, conv_epilogue  # noqa: F401
 from . import topology
 
 BN_EPS = 1e-3  # Keras BatchNormalization default epsilon
@@ -181,28 +190,6 @@ def params_to_jax(params, state):
 # ---------------------------------------------------------------------------
 # BN folding and the folded (inference) forward
 # ---------------------------------------------------------------------------
-
-def _mish(x):
-    """mish(x) = x * tanh(softplus(x)) via the single-exp identity
-
-        tanh(softplus(x)) = (u^2 + 2u) / (u^2 + 2u + 2),  u = e^x,
-
-    with the exp clamped at 20 (above it mish(x) = x at f32 precision).  The
-    same arithmetic, in the same order, as the JAX package; ``F.mish``
-    differs from it by up to ~1.5e-4.
-    """
-    u = torch.exp(torch.clamp(x, max=20.0))
-    n = u * u + 2.0 * u
-    return torch.where(x > 20.0, x, x * (n / (n + 2.0)))
-
-
-def _activate(y, activation):
-    if activation == "mish":
-        return _mish(y)
-    if activation == "leaky":
-        return F.leaky_relu(y, negative_slope=0.1)
-    return y
-
 
 class _NCHWOps:
     """The shape ops of the topology on NCHW activations, shared by the
@@ -437,16 +424,10 @@ def cast(x, dtype):
     return x if x.dtype == dtype else x.to(dtype)
 
 
-def _bias(b, dtype):
-    """(C,) bias -> (1, C, 1, 1) for NCHW activations.  Added after the conv,
-    in the compute dtype, as the JAX forward does (not fused into the conv,
-    which would add it before the bf16 output rounding)."""
-    return cast(b, dtype).view(1, -1, 1, 1)
-
-
 class _FoldedApplyOps(_NCHWOps):
     """Ops backend over folded params (every conv is w+b, no BN) on NCHW
-    activations."""
+    activations.  Every conv ends in ``_epilogue``, the custom op
+    ``conv_epilogue``."""
 
     def __init__(self, params, compute_dtype=torch.float32, s2d_stem=False):
         self.params = params
@@ -455,6 +436,10 @@ class _FoldedApplyOps(_NCHWOps):
         self.i = 0
         self.s2d_stem = s2d_stem
         self._skip_next = False
+
+    def _epilogue(self, y, b, activation):
+        """act(y + b) for a conv output ``y`` in the compute dtype."""
+        return conv_epilogue(y, cast(b, self.dtype), activation or "linear")
 
     def _stem_pair_s2d(self, x, activation):
         """Both stem convs in block space (see _s2d_stem_kernels)."""
@@ -468,11 +453,11 @@ class _FoldedApplyOps(_NCHWOps):
         xb = xb.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
         xb = cast(xb.permute(0, 3, 1, 2), self.dtype)
         y = F.conv2d(xb, cast(w1p, self.dtype), padding=1)
-        y = _activate(y + _bias(b1p, self.dtype), activation)
-        y = F.conv2d(F.pad(y, (1, 0, 1, 0)), cast(w2p, self.dtype))
-        # conv1's own activation is applied by the (skipped) second conv()
-        # call, so any activation combination stays exact.
-        return y + _bias(self.convs[1]["b"], self.dtype)
+        y = self._epilogue(y, b1p, activation)
+        # conv1's raw output: its bias and activation are applied by the
+        # (skipped) second conv() call, so any activation combination
+        # stays exact.
+        return F.conv2d(F.pad(y, (1, 0, 1, 0)), cast(w2p, self.dtype))
 
     def conv(self, x, filters, kernel_size, downsampling=False,
              activation="leaky", batch_norm=True):
@@ -489,7 +474,7 @@ class _FoldedApplyOps(_NCHWOps):
             if not (downsampling and kernel_size == 3):
                 raise ValueError("s2d stem expects the darknet downsample "
                                  "conv right after the stem conv")
-            return _activate(x, activation)
+            return self._epilogue(x, self.convs[1]["b"], activation)
         p = self.convs[self.i]
         self.i += 1
         x, w = cast(x, self.dtype), cast(p["w"], self.dtype)
@@ -498,7 +483,7 @@ class _FoldedApplyOps(_NCHWOps):
             y = F.conv2d(F.pad(x, (1, 0, 1, 0)), w, stride=2)
         else:
             y = F.conv2d(x, w, padding=kernel_size // 2)
-        return _activate(y + _bias(p["b"], self.dtype), activation)
+        return self._epilogue(y, p["b"], activation)
 
 
 

@@ -13,14 +13,16 @@ as one ``.pt2`` file::
     boxes, scores, classes, valid = detect(images)   # (8,416,416,3) float32
 
 The program is specialised to one (batch, height, width) shape, one input
-dtype and its platforms, the usual AOT serving contract.  Its NMS kernels
+dtype and its platforms, the usual AOT serving contract.  Its kernels
 are the port's ``torch.library`` custom ops (``yolov4tpu_torch::
 suppress_rank`` for ``nms_impl="fast"``, ``yolov4tpu_torch::suppress``
-for ``"pallas"``), which resolve only once this package has been imported:
-``load_detector`` imports it.  An artifact exported for both platforms,
-``platforms=("cuda", "cpu")``, needs ``nms_impl="xla"`` (the plain torch
-NMS), holds none of the port's ops and loads with torch alone.  The JAX
-package's StableHLO artifacts and these are not interchangeable.
+for ``"pallas"``, and, in a program for ``("cuda",)`` alone,
+``yolov4tpu_torch::conv_epilogue`` after every float conv), which resolve
+only once this package has been imported: ``load_detector`` imports it.
+An artifact exported for both platforms, ``platforms=("cuda", "cpu")``,
+needs ``nms_impl="xla"`` (the plain torch NMS), ends its convs in the
+plain epilogue, holds none of the port's ops and loads with torch alone.
+The JAX package's StableHLO artifacts and these are not interchangeable.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .ops import nms_cuda  # noqa: F401  (registers the NMS custom ops)
+from .ops import epilogue, nms_cuda  # noqa: F401  (registers the custom ops)
 
 _PLATFORMS = (("cuda",), ("cpu",), ("cuda", "cpu"))
 _META = "yolov4tpu_torch.json"  # the artifact's platforms and signature
@@ -112,6 +114,12 @@ def export_detector(model, path: str, batch_size: int = 1,
         dtype=torch.uint8 if input_dtype == "uint8" else torch.float32,
         device=device)
     exported = torch.export.export(module, (example,), strict=False)
+    if platforms != ("cuda",):
+        # The epilogue kernel runs only on the card: any other program ends
+        # its convs in the eager expression, the same numbers.
+        exported = exported.run_decompositions(
+            {torch.ops.yolov4tpu_torch.conv_epilogue.default:
+             epilogue.conv_epilogue_reference})
     meta = {"platforms": list(platforms), "device": str(example.device),
             "input_shape": list(example.shape), "input_dtype": input_dtype}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

@@ -1,5 +1,6 @@
-"""Timing on the card, and the training path's wgrad shapes: the helpers
-``chip_smoke.py`` and ``tools/wgrad_probe.py`` share."""
+"""Timing on the card, the training path's wgrad shapes and the folded
+forward's epilogue shapes: the helpers ``chip_smoke.py``,
+``tools/wgrad_probe.py`` and the card's tests share."""
 
 from __future__ import annotations
 
@@ -82,3 +83,31 @@ def wgrad_shapes(side: int = 416, num_classes: int = 80, csp_repeats=None):
     topology.yolov4(trace, network._ShapeVal(side, side, 3), num_classes,
                     csp_repeats or topology.DEFAULT_CSP_REPEATS)
     return trace.s1
+
+
+def epilogue_shapes(side: int = 416, batch: int = 64, num_classes: int = 80,
+                    csp_repeats=None, s2d_stem: bool = True) -> list:
+    """(NCHW shape, activation) of every conv epilogue of the folded
+    forward (``network.apply_folded``) of a ``batch`` of ``side``-square
+    images, in order: the forward run on meta tensors, which allocate and
+    compute nothing."""
+    from ..models import network, topology
+
+    class Record(network._FoldedApplyOps):
+        def _epilogue(self, y, b, activation):
+            seen.append((tuple(y.shape), activation or "linear"))
+            return super()._epilogue(y, b, activation)
+
+    depth = csp_repeats or topology.DEFAULT_CSP_REPEATS
+    folded = {"convs": [
+        {"w": torch.empty((s.filters, s.in_ch, s.kernel_size, s.kernel_size),
+                          device="meta"),
+         "b": torch.empty((s.filters,), device="meta")}
+        for s in network.conv_specs(num_classes, depth)]}
+    folded = network.prepare_folded(folded, "meta", torch.bfloat16)
+    images = torch.empty((batch, 3, side, side), device="meta")
+    seen = []
+    topology.yolov4(Record(folded, torch.bfloat16, s2d_stem=s2d_stem),
+                    images.contiguous(memory_format=torch.channels_last),
+                    num_classes, depth)
+    return seen
