@@ -21,6 +21,14 @@ exits non-zero without printing a result:
      those 110 (CUDA-graph replays) by activation, against its bound, its
      eager launches and the eager chain it replaces; nvcc's ptxas report
      is phase 1's;
+  2c. YOLOv4-P6 (Scaled-YOLOv4): the epilogue's second mode
+     (``conv_epilogue_merge``) against its plain version, bit for bit, on
+     every bf16 value and at the 7 second-stage shapes of the 1280^2 b16
+     forward, in bfloat16 and float32, with its device time against its
+     bound; then ``Yolov4(config=p6_config(...)).predict_batch`` at
+     1280^2, b16, bfloat16, uint8, its launches counted around each call:
+     205 ``conv_epilogue`` launches (7 of them merges) and one
+     ``suppress_rank`` a call, and its img/s;
   3. the main path through the user's entry points: ``Yolov4`` at full
      depth, 416x416, COCO-80, random darknet weights from a seed with the
      head biases calibrated to ~120 boxes per image, ``predict_batch`` at
@@ -518,6 +526,102 @@ def epilogue_phase(torch, epilogue, card):
     log(f"conv_epilogue: largest |kernel - plain| over every check {worst!r}")
     out["max_abs_err"] = worst
     return out
+
+
+def p6_phase(torch, epilogue, nms_cuda, card, calls: int = 3):
+    """Phase 2c: YOLOv4-P6's second epilogue mode against its plain
+    version (every bf16 value, four (s, t) pairs; the 7 second-stage
+    shapes of the 1280^2 b16 forward in bf16 and f32), its device time
+    over the 7 against its bytes' bound; then P6's ``predict_batch`` at
+    1280^2 b16 bf16 on uint8 input with seeded reference weights, each
+    call's launches counted.  Returns the largest |kernel - plain|."""
+    from perfbench.reference import scaled_yolov4 as ref
+    from yolov4tpu_torch.api import Yolov4
+    from yolov4tpu_torch.config import p6_config
+
+    y = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda")
+    y = y.to(torch.int16).view(torch.bfloat16).view(1, 64, 128, 8)
+    y = y.permute(0, 3, 1, 2)
+    b = torch.full((8,), -0.0, dtype=torch.bfloat16, device="cuda")
+    worst = 0.0
+    for sv, tv in ((1.0, 0.0), (0.37, -1.5), (2.5, 0.75), (0.9, 3.0)):
+        s = torch.full((8,), sv, dtype=torch.bfloat16, device="cuda")
+        t = torch.full((8,), tv, dtype=torch.bfloat16, device="cuda")
+        got = epilogue.conv_epilogue_merge(y, b, s, t)
+        want = epilogue.conv_epilogue_merge_reference(y, b, s, t)
+        worst = max(worst, epilogue_err(torch, got, want))
+        nan = torch.isnan(want)
+        gb, wb = epilogue_bits(torch, got), epilogue_bits(torch, want)
+        check(torch.equal(torch.isnan(got), nan)
+              and torch.equal(gb[~nan], wb[~nan]),
+              f"conv_epilogue_merge != plain on the bf16 values (s {sv}, "
+              f"t {tv})")
+    log("conv_epilogue_merge bf16: equal to the plain version on all "
+        "65,536 bf16 values at four (s, t) pairs")
+    sites = ref.second_stage_sites(1280)
+    check(len(sites) == 7, f"expected 7 second-stage sites, got {sites}")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cases = []
+        for c, h, w in sites:
+            y = torch.randn((16, h, w, c), generator=gen, device="cuda") * 6
+            bst = [torch.randn((c,), generator=gen, device="cuda")
+                   for _ in range(3)]
+            bst[1] = 0.3 + bst[1].abs()
+            cases.append((y.to(dtype).permute(0, 3, 1, 2),
+                          *(v.to(dtype) for v in bst)))
+            del y
+        before, merges = epilogue.LAUNCHES, epilogue.MERGES
+        for i, args in enumerate(cases):
+            got = epilogue.conv_epilogue_merge(*args)
+            want = epilogue.conv_epilogue_merge_reference(*args)
+            worst = max(worst, epilogue_err(torch, got, want))
+            gb, wb = epilogue_bits(torch, got), epilogue_bits(torch, want)
+            check(torch.equal(gb, wb),
+                  f"conv_epilogue_merge {name} != plain at site {i} "
+                  f"{tuple(args[0].shape)}: {int((gb != wb).sum())} differ")
+            del got, want, gb, wb
+        torch.cuda.synchronize()
+        check(epilogue.LAUNCHES - before == 7
+              and epilogue.MERGES - merges == 7,
+              f"{epilogue.LAUNCHES - before} launches for 7 merges")
+        nbytes = 2 * sum(a[0].numel() for a in cases) \
+            * cases[0][0].element_size()
+        ms = graph_ms(lambda: [epilogue.conv_epilogue_merge(*a)
+                               for a in cases], n=1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"conv_epilogue_merge {name}: bit for bit at the 7 sites of "
+            f"the 1280^2 b16 forward; {nbytes / 1e9:.3f} GB in {ms:.3f} ms "
+            f"device, bound {bound:.3f} ms, at {bound / ms:.1%} of it "
+            f"({card})")
+        del cases
+        torch.cuda.empty_cache()
+
+    classes = SCRATCH / "p6_classes.txt"
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    classes.write_text("".join(f"c{i}\n" for i in range(80)))
+    model = Yolov4(class_name_path=str(classes),
+                   config=p6_config(compute_dtype="bfloat16"))
+    model.sync_params(*ref.make(5, 80, "cuda"))
+    imgs = scene(3, 16, 1280)
+    [o.cpu() for o in model.predict_batch(imgs)]   # warm-up
+    for i in range(calls):
+        nms_cuda.LAUNCHES, merges = 0, epilogue.MERGES
+        (out, n) = counted_epilogues(
+            torch, lambda: [o.cpu() for o in model.predict_batch(imgs)], 1,
+            f"P6 call {i}", per_forward=205)
+        check(epilogue.MERGES - merges == 7 and nms_cuda.LAUNCHES == 1,
+              f"P6 call {i}: {epilogue.MERGES - merges} merges, "
+              f"{nms_cuda.LAUNCHES} suppress_rank launches")
+        check(tuple(out[0].shape) == (16, 100, 4), "P6 boxes' shape")
+    rate = predict_rate(torch, model, imgs, iters=5)
+    log(f"P6 predict_batch 1280^2 b16 bf16 uint8: 205 conv_epilogue "
+        f"launches (7 merges) and 1 suppress_rank a call over {calls} "
+        f"calls; {rate:.1f} img/s ({card})")
+    log(f"conv_epilogue_merge: largest |kernel - plain| {worst!r}")
+    del model
+    torch.cuda.empty_cache()
+    return worst
 
 
 def nms_inputs(torch, nms_cuda, model, images):
@@ -4287,6 +4391,9 @@ def main() -> int:
     phase_done("2 (NMS kernels vs plain)")
     epi = epilogue_phase(torch, epilogue, card)
     phase_done("2b (conv epilogue kernel vs plain)")
+    epi["max_abs_err"] = max(epi["max_abs_err"],
+                             p6_phase(torch, epilogue, nms_cuda, card))
+    phase_done("2c (YOLOv4-P6: merge epilogue, predict_batch)")
 
     # --- 3. the main path ------------------------------------------------
     SCRATCH.mkdir(parents=True, exist_ok=True)

@@ -201,7 +201,8 @@ def test_forward_span_counts_the_epilogues(tiny_classes):
         (forward,) = [s for s in profiling.spans() if s.name == "forward"]
     finally:
         profiling.clear_spans()
-    assert forward.counts == {"convs": 110, "epilogue_launches": 0}
+    assert forward.counts == {"convs": 110, "epilogue_launches": 0,
+                              "merges": 0}
 
 
 def _port_ops(program):

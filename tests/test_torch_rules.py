@@ -100,7 +100,12 @@ def test_config_matches_jax():
     for got, want in [(YoloConfig(), JaxConfig()),
                       (tapi._config_from_dict(REFERENCE_DICT),
                        japi._config_from_dict(REFERENCE_DICT))]:
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        # Every field of the JAX package's, with its value; besides them
+        # the port's only field, arch, which picks a graph the JAX package
+        # does not have, defaults to that package's one graph.
+        mine = dataclasses.asdict(got)
+        assert mine.pop("arch") == "yolov4"
+        assert mine == dataclasses.asdict(want)
         np.testing.assert_array_equal(got.anchors_grouped,
                                       want.anchors_grouped)
         assert got.grid_sizes() == want.grid_sizes()

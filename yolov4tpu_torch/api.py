@@ -33,10 +33,10 @@ import torch
 
 from . import checkpoint as ckpt
 from . import evalmap, weights
-from .config import DEFAULT_CONFIG, YoloConfig
+from .config import DEFAULT_CONFIG, YoloConfig, require_yolov4
 from .device import resolve_device, to_device_async
 from .models import head, network
-from .ops.detect import detect_fused
+from .ops.detect import WH_DECODES, detect_fused
 from .ops.nms import combined_nms
 from .ops import epilogue
 from .ops.nms_cuda import combined_nms_sorted
@@ -51,15 +51,16 @@ from .utils.visualize import draw_bbox, get_detection_data
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _select_raw_apply(scales, dataflow: str):
+def _select_raw_apply(scales, dataflow: str, arch: str = "yolov4"):
     """The float-vs-int8 forward, shared by every builder of a raw-grid
-    function: None -> the folded float forward; a calibration-scales dict
-    (``models.quantize.calibrate``) -> the int8 forward bound to them."""
+    function: None -> the folded float forward (of ``arch``'s graph); a
+    calibration-scales dict (``models.quantize.calibrate``) -> the int8
+    forward bound to them (YOLOv4 only)."""
     if scales is not None:
         from .models.quantize import apply_quantized
         return functools.partial(apply_quantized, scales=scales,
                                  dataflow=dataflow)
-    return network.apply_folded
+    return functools.partial(network.apply_folded, arch=arch)
 
 
 def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
@@ -83,7 +84,11 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
     sharded, and every rank decodes and suppresses the gathered grids.
 
     The ``forward`` span counts ``convs``, the epilogues the forward ran,
-    and ``epilogue_launches``, those of them that took the CUDA kernel.
+    ``epilogue_launches``, those of them that took the CUDA kernel, and
+    ``merges``, those in the second-stage mode (``conv_epilogue_merge``;
+    P6's 7, YOLOv4's none).
+
+    ``cfg.arch`` picks the graph and the size decode here, once.
     """
     if cfg.nms_impl not in ("fast", "xla", "pallas"):
         raise ValueError(f"unknown nms_impl {cfg.nms_impl!r}")
@@ -93,7 +98,8 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
                  else combined_nms)
     anchors = cfg.anchors_grouped
     strides, xyscale, img_size = cfg.strides, cfg.xyscale, cfg.img_size
-    apply = _select_raw_apply(quantized, quantized_dataflow)
+    apply = _select_raw_apply(quantized, quantized_dataflow, cfg.arch)
+    wh_decode = WH_DECODES[cfg.arch]
     if spatial_mesh is not None:
         apply = spatial.sharded_apply(apply, spatial_mesh, img_size[0])
 
@@ -101,20 +107,23 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
     def infer_fn(folded, images, iou_t, score_t):
         with span("forward", device=images.device) as record:
             calls, launches = epilogue.CALLS, epilogue.LAUNCHES
+            merges = epilogue.MERGES
             if images.dtype == torch.uint8:
                 images = images.to(torch.float32) / 255.0
             raws = apply(folded, images, num_classes, compute_dtype,
                          csp_repeats=cfg.csp_repeats, s2d_stem=cfg.s2d_stem)
             if record:
                 record.count(convs=epilogue.CALLS - calls,
-                             epilogue_launches=epilogue.LAUNCHES - launches)
+                             epilogue_launches=epilogue.LAUNCHES - launches,
+                             merges=epilogue.MERGES - merges)
         if cfg.nms_impl == "fast":
             return detect_fused(
                 raws, anchors, num_classes, strides, xyscale, img_size[0],
                 iou_threshold=iou_t, score_threshold=score_t,
                 max_per_class=cfg.max_boxes, max_total=cfg.max_boxes,
-                candidates=cfg.nms_pre_top_k)
-        outs = head.decode_head(raws, anchors, num_classes, strides, xyscale)
+                candidates=cfg.nms_pre_top_k, wh_decode=wh_decode)
+        outs = head.decode_head(raws, anchors, num_classes, strides, xyscale,
+                                wh_decode)
         boxes, scores = head.flatten_boxes_scores(outs, img_size[0],
                                                   num_classes)
         return exact_nms(
@@ -126,7 +135,12 @@ def build_infer_fn(cfg: YoloConfig, num_classes: int, compute_dtype,
 
 
 class Yolov4:
-    """YOLOv4 detector with a reference-compatible API surface."""
+    """YOLOv4 detector with a reference-compatible API surface.
+
+    ``config.arch="yolov4-p6"`` (``config.p6_config``) builds YOLOv4-P6
+    instead: inference (``predict_batch`` and what runs on it) over
+    params from the seed or ``sync_params``; training, int8, ``distribute``,
+    the serving export and weight files raise for it."""
 
     def __init__(self, weight_path: Optional[str] = None,
                  class_name_path: str = "coco_classes.txt",
@@ -166,6 +180,7 @@ class Yolov4:
     def build_model(self, load_pretrained: bool = True):
         """Initialise (or load) params and build the inference function."""
         if load_pretrained and self.weight_path:
+            require_yolov4(self.config, "loading a weight file")
             if tuple(self.config.csp_repeats) != (1, 2, 8, 8, 4):
                 raise ValueError(
                     "pretrained weights require the full CSPDarknet53 depth "
@@ -187,7 +202,7 @@ class Yolov4:
         else:
             self.params, self.state, _ = network.init(
                 self.num_classes, self.img_size[0], seed=self._seed,
-                csp_repeats=self.config.csp_repeats)
+                csp_repeats=self.config.csp_repeats, arch=self.config.arch)
         self._refresh_inference()
 
     def _refresh_inference(self, folded=None):
@@ -204,7 +219,11 @@ class Yolov4:
                 f"unknown compute_dtype {self.config.compute_dtype!r}")
         self._compute_dtype = _DTYPES[self.config.compute_dtype]
         if folded is None:
-            folded = network.fold_bn(self.params, self.state)
+            folded = network.fold_bn(self.params, self.state,
+                                     network.conv_specs(
+                                         self.num_classes,
+                                         tuple(self.config.csp_repeats),
+                                         self.config.arch))
         if self._mesh is not None:
             replicate({"folded": folded, "scales": self._act_scales},
                       self._mesh)
@@ -216,7 +235,8 @@ class Yolov4:
         self._folded = network.prepare_folded(folded, self.device,
                                               self._compute_dtype)
         self._raw_apply = _select_raw_apply(self._act_scales,
-                                            self._q_dataflow)
+                                            self._q_dataflow,
+                                            self.config.arch)
         cfg, mesh = self.config, self._spatial_mesh()
         if mesh is not None:
             cfg = cfg.replace(s2d_stem=False)
@@ -269,6 +289,7 @@ class Yolov4:
         per-conv scheme.  calib_method: "max" or "percentile" (clip
         |activation| at ``calib_percentile``; see ``quantize.calibrate``).
         """
+        require_yolov4(self.config, "quantize")
         if dataflow not in ("int8", "bf16"):
             raise ValueError(
                 f"dataflow must be 'int8' or 'bf16', got {dataflow!r}")
@@ -322,6 +343,7 @@ class Yolov4:
         gathered, and every rank decodes and suppresses them.  The
         space-to-depth stem is off on this axis, as in the JAX package.
         """
+        require_yolov4(self.config, "distribute")
         if axis not in ("batch", "spatial"):
             raise ValueError(
                 f"axis must be 'batch' or 'spatial', got {axis!r}")
@@ -341,6 +363,7 @@ class Yolov4:
         package's layout (``.npz`` is appended to a path without it).  A
         quantized facade writes its float weights, as the JAX package's
         does."""
+        require_yolov4(self.config, "save_model")
         if path.endswith(".weights"):
             weights.save_darknet_weights(self.params, self.state, path)
         else:
@@ -351,6 +374,7 @@ class Yolov4:
         """Restore a ``.weights`` file or an ``.npz`` checkpoint and refold
         onto the facade's device; keeps the configured NMS thresholds
         (unlike reference models.py:86-90)."""
+        require_yolov4(self.config, "load_model")
         if path.endswith(".weights"):
             self.params, self.state = weights.load_darknet_weights(
                 path, self.num_classes)

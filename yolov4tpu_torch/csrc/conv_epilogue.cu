@@ -63,6 +63,19 @@
 // rounding and a shared-memory load.  The same function of the same bits,
 // so the same output.
 //
+// A second mode, for the convs of YOLOv4-P6 whose output is one half of a
+// concat that a BN + mish follows (the BN folded to a per-channel s, t):
+//
+//   out = mish(round(round(mish(round(y + b)) * s) + t)),
+//
+// the chain _activate(_activate(y + b) * s + t) of the plain version
+// (ops/epilogue.py::conv_epilogue_merge_reference) in the same roundings.
+// Its kernels (epilogue_merge_vec, epilogue_merge_lut, epilogue_merge_scalar)
+// are instantiations of their own, so the first mode's kernels carry no
+// branch for it, and their names tell them apart in a device trace.  The
+// eager chain ran four passes at each such conv (add, mish, multiply-add,
+// mish; mish itself ten kernels); this reads y once and writes out once.
+//
 // The table is filled by conv_epilogue_init, which the caller runs once
 // per device, outside any CUDA graph's capture: it launches the fill on
 // the caller's stream and waits for it, so that later launches on any
@@ -274,6 +287,92 @@ __global__ void __launch_bounds__(kLutThreads, 1)
     }
 }
 
+// mish of a bf16 value (as float32) from the table.
+__device__ __forceinline__ float mish_from(const unsigned short* table,
+                                           float v) {
+    return __uint_as_float(
+        static_cast<unsigned>(table[__float_as_uint(v) >> 16]) << 16);
+}
+
+// The second mode for one value, given as float32 (exact in the storage
+// type); mish from the table when LUT (bf16 only), else computed.
+template <bool BF16, bool LUT>
+__device__ __forceinline__ float merge_one(float y, float b, float s, float t,
+                                           const unsigned short* table) {
+    static_assert(BF16 || !LUT, "the table holds bf16 values");
+    const float v = rnd<BF16>(__fadd_rn(y, b));
+    float m;
+    if constexpr (LUT) {
+        m = mish_from(table, v);
+    } else {
+        m = activate<BF16, kMish>(v);
+    }
+    const float w = rnd<BF16>(__fadd_rn(rnd<BF16>(__fmul_rn(m, s)), t));
+    if constexpr (LUT) {
+        return mish_from(table, w);
+    } else {
+        return activate<BF16, kMish>(w);
+    }
+}
+
+// The second mode over nvec 16-byte vectors, C a multiple of the vector's
+// values.  LUT (bf16 only): one 1,024-thread block an SM with the mish
+// table in shared memory, as mish_lut_vec; else 256-thread blocks that
+// compute mish.
+template <bool BF16, bool LUT>
+__global__ void __launch_bounds__(LUT ? kLutThreads : kThreads)
+    epilogue_merge_vec(const uint4* __restrict__ y,
+                       const char* __restrict__ b,
+                       const char* __restrict__ s,
+                       const char* __restrict__ t,
+                       uint4* __restrict__ out, int64_t nvec, int C) {
+    using L = Lanes<BF16>;
+    constexpr int kElem = BF16 ? 2 : 4;
+    constexpr int kBlock = LUT ? kLutThreads : kThreads;
+    const unsigned short* table = nullptr;
+    if constexpr (LUT) {
+        extern __shared__ uint4 smem[];
+        const uint4* src = reinterpret_cast<const uint4*>(g_mish_table);
+        for (int k = threadIdx.x; k < kTableBytes / 16; k += kBlock) {
+            smem[k] = src[k];
+        }
+        __syncthreads();
+        table = reinterpret_cast<const unsigned short*>(smem);
+    }
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * kBlock;
+    const int step = static_cast<int>((stride * L::kN) % C);
+    int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+    int c = static_cast<int>((i * L::kN) % C);
+    for (; i < nvec; i += kUnroll * stride) {
+        uint4 v[kUnroll];
+        int ch[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+            ch[k] = c;
+            c += step;
+            if (c >= C) c -= C;
+            if (i + k * stride < nvec) v[k] = __ldg(y + i + k * stride);
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+            if (i + k * stride < nvec) {
+                const int64_t off = static_cast<int64_t>(ch[k]) * kElem;
+                float f[L::kN], gb[L::kN], gs[L::kN], gt[L::kN];
+                L::unpack(v[k], f);
+                L::unpack(__ldg(reinterpret_cast<const uint4*>(b + off)), gb);
+                L::unpack(__ldg(reinterpret_cast<const uint4*>(s + off)), gs);
+                L::unpack(__ldg(reinterpret_cast<const uint4*>(t + off)), gt);
+#pragma unroll
+                for (int j = 0; j < L::kN; ++j) {
+                    f[j] = merge_one<BF16, LUT>(f[j], gb[j], gs[j], gt[j],
+                                                table);
+                }
+                __stcs(out + i + k * stride, L::pack(f));
+            }
+        }
+    }
+}
+
 template <bool BF16>
 __device__ __forceinline__ float load_one(const void* p, int64_t e) {
     if constexpr (BF16) {
@@ -297,6 +396,34 @@ __global__ void __launch_bounds__(kThreads)
     for (; e < n; e += stride) {
         const float r = epilogue<BF16, ACT>(load_one<BF16>(y, e),
                                             load_one<BF16>(b, c));
+        if constexpr (BF16) {
+            static_cast<unsigned short*>(out)[e] =
+                static_cast<unsigned short>(__float_as_uint(r) >> 16);
+        } else {
+            static_cast<float*>(out)[e] = r;
+        }
+        c += step;
+        if (c >= C) c -= C;
+    }
+}
+
+// The second mode over n values, any C, any alignment; mish computed.
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads)
+    epilogue_merge_scalar(const void* __restrict__ y,
+                          const void* __restrict__ b,
+                          const void* __restrict__ s,
+                          const void* __restrict__ t,
+                          void* __restrict__ out, int64_t n, int C) {
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+    const int step = static_cast<int>(stride % C);
+    int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+    int c = static_cast<int>(e % C);
+    for (; e < n; e += stride) {
+        const float r = merge_one<BF16, false>(load_one<BF16>(y, e),
+                                        load_one<BF16>(b, c),
+                                        load_one<BF16>(s, c),
+                                        load_one<BF16>(t, c), nullptr);
         if constexpr (BF16) {
             static_cast<unsigned short*>(out)[e] =
                 static_cast<unsigned short>(__float_as_uint(r) >> 16);
@@ -369,6 +496,37 @@ int launch_act(const void* y, const void* b, void* out, int64_t n, int C,
     }
 }
 
+template <bool BF16>
+cudaError_t launch_merge(const void* y, const void* b, const void* s,
+                         const void* t, void* out, int64_t n, int C, bool vec,
+                         bool table, cudaStream_t stream) {
+    const int cap = sm_count() * kBlocksPerSm * kWaves;
+    if (vec) {
+        const int64_t nvec = n / Lanes<BF16>::kN;
+        const auto* yv = static_cast<const uint4*>(y);
+        const auto* bc = static_cast<const char*>(b);
+        const auto* sc = static_cast<const char*>(s);
+        const auto* tc = static_cast<const char*>(t);
+        auto* ov = static_cast<uint4*>(out);
+        if constexpr (BF16) {
+            if (table) {
+                epilogue_merge_vec<true, true>
+                    <<<grid_for(nvec, kLutThreads, kUnroll, sm_count()),
+                       kLutThreads, kTableBytes, stream>>>(yv, bc, sc, tc,
+                                                           ov, nvec, C);
+                return cudaGetLastError();
+            }
+        }
+        epilogue_merge_vec<BF16, false>
+            <<<grid_for(nvec, kThreads, kUnroll, cap), kThreads, 0,
+               stream>>>(yv, bc, sc, tc, ov, nvec, C);
+    } else {
+        epilogue_merge_scalar<BF16><<<grid_for(n, kThreads, 1, cap), kThreads,
+                                      0, stream>>>(y, b, s, t, out, n, C);
+    }
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // Fills the current device's mish table on the stream, waits for it, and
@@ -380,6 +538,10 @@ extern "C" int conv_epilogue_init(void* stream_ptr) {
     cudaError_t err = cudaFuncSetAttribute(
         mish_lut_vec, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kTableBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(epilogue_merge_vec<true, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kTableBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     mish_table_fill<<<(1 << 16) / 256, 256, 0, stream>>>();
     err = cudaGetLastError();
@@ -408,4 +570,31 @@ extern "C" int conv_epilogue_launch(const void* y, const void* b, void* out,
                                    stream)
                 : launch_act<false>(y, b, out, n, C, vec, table != 0, act,
                                     stream);
+}
+
+// The second mode: y, out rows x C values (channels_last); b, s, t: C
+// values each; bf16 and table as conv_epilogue_launch takes them.
+// Returns 0 or a cudaError_t code.
+extern "C" int conv_epilogue_merge_launch(const void* y, const void* b,
+                                          const void* s, const void* t,
+                                          void* out, int64_t rows, int C,
+                                          int bf16, int table,
+                                          void* stream_ptr) {
+    if (rows < 0 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t n = rows * C;
+    if (n == 0) return 0;
+    const int lanes = bf16 ? 8 : 4;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(y) |
+                           reinterpret_cast<uintptr_t>(b) |
+                           reinterpret_cast<uintptr_t>(s) |
+                           reinterpret_cast<uintptr_t>(t) |
+                           reinterpret_cast<uintptr_t>(out)) %
+                          16) == 0;
+    const bool vec = aligned && C % lanes == 0;
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    return static_cast<int>(
+        bf16 ? launch_merge<true>(y, b, s, t, out, n, C, vec, table != 0,
+                                  stream)
+             : launch_merge<false>(y, b, s, t, out, n, C, vec, table != 0,
+                                   stream));
 }

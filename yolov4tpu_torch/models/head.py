@@ -6,6 +6,12 @@ Counterpart of ``yolov4tpu.models.head`` (reference custom_layers.py:221-257):
     box_xy = ((sigmoid(xy)*xyscale) - 0.5*(xyscale-1) + grid) * stride
     box_wh = exp(wh) * anchors            # pixel units
 
+YOLOv4-P6 (Scaled-YOLOv4) decodes the size as ``box_wh = (2 *
+sigmoid(wh))**2 * anchors`` (``ops.detect.wh_scaled``) and the centre as
+above at xyscale 2; ``ops.detect.WH_DECODES`` maps each
+``YoloConfig.arch`` to its size decode, chosen once where a function is
+built.
+
 Channel 0 of the grid is the column (x) index, channel 1 the row (y) index.
 This decomposed path is what the fused path (``ops.detect``) is tested
 against; raw grids are NHWC with channels laid out (anchor, 5+C).
@@ -17,6 +23,8 @@ from typing import List, Sequence
 
 import torch
 
+from ..ops.detect import wh_exp
+
 
 def _xy_grid(grid_h: int, grid_w: int, device) -> torch.Tensor:
     """(grid_h, grid_w, 1, 2) float grid; [...,0]=col(x), [...,1]=row(y)."""
@@ -27,15 +35,16 @@ def _xy_grid(grid_h: int, grid_w: int, device) -> torch.Tensor:
     return torch.stack([cols, rows], dim=-1)[:, :, None, :]
 
 
-def get_boxes(raw, anchors, num_classes: int, stride: int, xyscale: float):
+def get_boxes(raw, anchors, num_classes: int, stride: int, xyscale: float,
+              wh_decode=wh_exp):
     """Inference decode for one scale.
 
-    raw: (B, g, g, 3*(5+C)) raw conv output; anchors: (3, 2) pixels.
-    Returns (corners (B,g,g,3,4) absolute pixels, obj (B,g,g,3,1),
-    cls (B,g,g,3,C), xywh (B,g,g,3,4) with xy in sigmoid space).
+    raw: (B, g, g, A*(5+C)) raw conv output; anchors: (A, 2) pixels.
+    Returns (corners (B,g,g,A,4) absolute pixels, obj (B,g,g,A,1),
+    cls (B,g,g,A,C), xywh (B,g,g,A,4) with xy in sigmoid space).
     """
     b, gh, gw = raw.shape[0], raw.shape[1], raw.shape[2]
-    p = raw.reshape(b, gh, gw, 3, 5 + num_classes)
+    p = raw.reshape(b, gh, gw, len(anchors), 5 + num_classes)
     box_xy = torch.sigmoid(p[..., 0:2])
     box_wh = p[..., 2:4]
     obj = torch.sigmoid(p[..., 4:5])
@@ -44,20 +53,21 @@ def get_boxes(raw, anchors, num_classes: int, stride: int, xyscale: float):
 
     grid = _xy_grid(gh, gw, raw.device)
     xy = ((box_xy * xyscale) - 0.5 * (xyscale - 1.0) + grid) * stride
-    wh = torch.exp(box_wh) * torch.as_tensor(anchors, dtype=torch.float32,
+    wh = wh_decode(box_wh) * torch.as_tensor(anchors, dtype=torch.float32,
                                              device=raw.device)
     corners = torch.cat([xy - wh / 2.0, xy + wh / 2.0], dim=-1)
     return corners, obj, cls, pred_xywh
 
 
 def decode_head(raw_outputs: Sequence, anchors_grouped, num_classes: int,
-                strides: Sequence[int], xyscale: Sequence[float]):
-    """All-scale decode: the flat 12-element list [corners0, obj0, cls0,
+                strides: Sequence[int], xyscale: Sequence[float],
+                wh_decode=wh_exp):
+    """All-scale decode: the flat list of 4 a scale [corners0, obj0, cls0,
     xywh0, corners1, ...] the reference head emits."""
     out: List = []
     for i, raw in enumerate(raw_outputs):
         out.extend(get_boxes(raw, anchors_grouped[i], num_classes,
-                             strides[i], xyscale[i]))
+                             strides[i], xyscale[i], wh_decode))
     return out
 
 

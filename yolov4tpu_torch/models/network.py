@@ -19,6 +19,21 @@ Layer semantics (reference custom_layers.py:5-31):
     inference (``fold_bn`` + ``apply_folded``);
   - mish via the single-exp identity, leaky-relu alpha=0.1.
 
+YOLOv4-P6 (``arch="yolov4-p6"``, ``topology.yolov4_p6``) adds a list of
+the BN + mish norms that follow its concats:
+
+    params = {"convs": [{"w", "gamma", "beta"} | {"w", "b"} | {"w"}, ...],
+              "norms": [{"gamma", "beta"}, ...]}
+    state  = {"bn": [{"mean", "var"} | None, ...],
+              "norms": [{"mean", "var"}, ...]}
+
+where {"w"} is a plain conv (no BN, no bias, no activation).  Every half
+of a norm's concat is the output of one conv, so ``fold_bn`` folds the
+norm into those convs: a plain conv takes its half's scale into its
+weight and its shift as its bias, and then ends in mish; a conv that
+already ends in BN + mish keeps its half as a second stage of its
+epilogue, ``mish(s * mish(y + b) + t)`` (``ConvSpec.norm``).
+
 The folded forward (``apply_folded``) ends every conv in
 ``ops.epilogue.conv_epilogue``: bias add and activation in one
 hand-written CUDA pass on the card (``csrc/conv_epilogue.cu``), bit for
@@ -37,8 +52,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.epilogue import _activate, _bias, _mish, conv_epilogue  # noqa: F401
+from ..ops.epilogue import (_activate, _bias, _mish,  # noqa: F401
+                            conv_epilogue, conv_epilogue_merge)
 from . import topology
+
+GRAPHS = {"yolov4": topology.yolov4, "yolov4-p6": topology.yolov4_p6}
 
 BN_EPS = 1e-3  # Keras BatchNormalization default epsilon
 BN_MOMENTUM = 0.99  # Keras BatchNormalization default momentum
@@ -49,13 +67,18 @@ BN_MOMENTUM = 0.99  # Keras BatchNormalization default momentum
 # ---------------------------------------------------------------------------
 
 class ConvSpec:
-    """Static description of one conv layer, in darknet serial order."""
+    """Static description of one conv layer, in darknet serial order.
+
+    ``norm``: None, or (norm index, channel offset) of the concat norm
+    that takes this conv's output as its channels [offset, offset +
+    filters) (P6): folded into the weight of a plain conv, a second
+    epilogue stage of a conv that ends in BN + activation (``merge``)."""
 
     __slots__ = ("index", "in_ch", "filters", "kernel_size", "downsampling",
-                 "activation", "batch_norm")
+                 "activation", "batch_norm", "norm")
 
     def __init__(self, index, in_ch, filters, kernel_size, downsampling,
-                 activation, batch_norm):
+                 activation, batch_norm, norm=None):
         self.index = index
         self.in_ch = in_ch
         self.filters = filters
@@ -63,11 +86,19 @@ class ConvSpec:
         self.downsampling = downsampling
         self.activation = activation
         self.batch_norm = batch_norm
+        self.norm = norm
+
+    @property
+    def merge(self) -> bool:
+        """Whether the fold gives this conv a second epilogue stage."""
+        return self.norm is not None and self.batch_norm
 
     def __repr__(self):
+        norm = f" norm{self.norm}" if self.norm is not None else ""
         return (f"ConvSpec({self.index}: {self.in_ch}->{self.filters} "
                 f"k{self.kernel_size}{' s2' if self.downsampling else ''} "
-                f"{self.activation or 'linear'}{' bn' if self.batch_norm else ''})")
+                f"{self.activation or 'linear'}{' bn' if self.batch_norm else ''}"
+                f"{norm})")
 
 
 # ---------------------------------------------------------------------------
@@ -75,10 +106,14 @@ class ConvSpec:
 # ---------------------------------------------------------------------------
 
 class _ShapeVal:
-    __slots__ = ("h", "w", "c")
+    """A tensor's shape in the trace; ``parts``: the (conv index or None,
+    channels) runs its channels come from, in order."""
 
-    def __init__(self, h, w, c):
+    __slots__ = ("h", "w", "c", "parts")
+
+    def __init__(self, h, w, c, src=None):
         self.h, self.w, self.c = h, w, c
+        self.parts = ((src, c),)
 
 
 class _InitOps:
@@ -94,20 +129,42 @@ class _InitOps:
         self.specs: List[ConvSpec] = []
         self.params: List[Dict[str, torch.Tensor]] = []
         self.state: List[Optional[Dict[str, torch.Tensor]]] = []
+        self.norms: List[Dict[str, torch.Tensor]] = []
+        self.norm_state: List[Dict[str, torch.Tensor]] = []
 
     def conv(self, x: _ShapeVal, filters: int, kernel_size: int,
              downsampling: bool = False, activation: str = "leaky",
-             batch_norm: bool = True) -> _ShapeVal:
+             batch_norm: bool = True, bias: bool = True) -> _ShapeVal:
         idx = len(self.specs)
         self.specs.append(ConvSpec(idx, x.c, filters, kernel_size,
                                    downsampling, activation, batch_norm))
         if self.rng is not None:
-            self._materialise(x.c, filters, kernel_size, batch_norm)
+            self._materialise(x.c, filters, kernel_size, batch_norm, bias)
         if downsampling:
-            return _ShapeVal(x.h // 2, x.w // 2, filters)
-        return _ShapeVal(x.h, x.w, filters)
+            return _ShapeVal(x.h // 2, x.w // 2, filters, idx)
+        return _ShapeVal(x.h, x.w, filters, idx)
 
-    def _materialise(self, in_ch, filters, kernel_size, batch_norm):
+    def plain_conv(self, x: _ShapeVal, filters: int) -> _ShapeVal:
+        return self.conv(x, filters, 1, activation=None, batch_norm=False,
+                         bias=False)
+
+    def norm_act(self, x: _ShapeVal) -> _ShapeVal:
+        """BN + mish over ``x``, a concat of conv outputs: each conv's
+        spec learns its channels of this norm."""
+        site, offset = len(self.norms), 0
+        for src, c in x.parts:
+            if src is None or self.specs[src].norm is not None:
+                raise ValueError("a norm's concat must be of conv outputs, "
+                                 "each read by this norm alone")
+            self.specs[src].norm = (site, offset)
+            offset += c
+        self.norms.append({"gamma": torch.ones(x.c),
+                           "beta": torch.zeros(x.c)})
+        self.norm_state.append({"mean": torch.zeros(x.c),
+                                "var": torch.ones(x.c)})
+        return _ShapeVal(x.h, x.w, x.c)
+
+    def _materialise(self, in_ch, filters, kernel_size, batch_norm, bias):
         w = self.rng.normal(0.0, 0.01,
                             (kernel_size, kernel_size, in_ch, filters)
                             ).astype(np.float32)
@@ -118,7 +175,8 @@ class _InitOps:
             self.state.append({"mean": torch.zeros(filters),
                                "var": torch.ones(filters)})
         else:
-            p["b"] = torch.zeros(filters)
+            if bias:
+                p["b"] = torch.zeros(filters)
             self.state.append(None)
         self.params.append(p)
 
@@ -129,27 +187,35 @@ class _InitOps:
         return x  # stride-1 SAME pool: shape-preserving
 
     def concat(self, xs: Sequence[_ShapeVal]) -> _ShapeVal:
-        return _ShapeVal(xs[0].h, xs[0].w, sum(v.c for v in xs))
+        out = _ShapeVal(xs[0].h, xs[0].w, sum(v.c for v in xs))
+        out.parts = tuple(p for v in xs for p in v.parts)
+        return out
 
     def add(self, a: _ShapeVal, b: _ShapeVal) -> _ShapeVal:
         return a
 
 
 def init(num_classes: int, img_size: int = 416, seed: int = 0,
-         csp_repeats=topology.DEFAULT_CSP_REPEATS):
-    """Create (params, state, conv_specs) for the full YOLOv4 network."""
+         csp_repeats=topology.DEFAULT_CSP_REPEATS, arch: str = "yolov4"):
+    """Create (params, state, conv_specs) for the full network of
+    ``arch``; P6's carry its concat norms under "norms"."""
     ops = _InitOps(np.random.default_rng(seed))
-    topology.yolov4(ops, _ShapeVal(img_size, img_size, 3), num_classes,
-                    csp_repeats)
-    return {"convs": ops.params}, {"bn": ops.state}, ops.specs
+    GRAPHS[arch](ops, _ShapeVal(img_size, img_size, 3), num_classes,
+                 tuple(csp_repeats))
+    params, state = {"convs": ops.params}, {"bn": ops.state}
+    if ops.norms:
+        params["norms"], state["norms"] = ops.norms, ops.norm_state
+    return params, state, ops.specs
 
 
 @functools.lru_cache(maxsize=8)
 def conv_specs(num_classes: int,
-               csp_repeats=topology.DEFAULT_CSP_REPEATS) -> Tuple[ConvSpec, ...]:
+               csp_repeats=topology.DEFAULT_CSP_REPEATS,
+               arch: str = "yolov4") -> Tuple[ConvSpec, ...]:
     """Conv-layer inventory in darknet serial order (shape trace only)."""
     ops = _InitOps(None)
-    topology.yolov4(ops, _ShapeVal(416, 416, 3), num_classes, csp_repeats)
+    GRAPHS[arch](ops, _ShapeVal(416, 416, 3), num_classes,
+                 tuple(csp_repeats))
     return tuple(ops.specs)
 
 
@@ -240,6 +306,10 @@ class _ApplyOps(_NCHWOps):
                  sample_mask=None, pallas_wgrad: bool = False):
         self.convs = params["convs"]
         self.bn = state["bn"]
+        self.norms = params.get("norms", ())
+        self.norm_state = state.get("norms", ())
+        self.j = 0
+        self.new_norms: List[Dict[str, torch.Tensor]] = []
         self.train = train
         self.dtype = compute_dtype
         self.stats_gradient = stats_gradient
@@ -284,8 +354,26 @@ class _ApplyOps(_NCHWOps):
 
         if not batch_norm:
             self.new_bn.append(None)
+            if "b" not in p:       # plain conv
+                return y
             return _activate(y + _bias(p["b"], self.dtype), activation)
-        gamma, beta = p["gamma"], p["beta"]
+        y, new = self._normalise(y, p["gamma"], p["beta"], bn)
+        self.new_bn.append(new)
+        return _activate(y, activation)
+
+    def plain_conv(self, x, filters):
+        return self.conv(x, filters, 1, activation=None, batch_norm=False)
+
+    def norm_act(self, x):
+        """BN (this pass's statistics in training) + mish over a concat."""
+        p, bn = self.norms[self.j], self.norm_state[self.j]
+        self.j += 1
+        y, new = self._normalise(x.to(self.dtype), p["gamma"], p["beta"], bn)
+        self.new_norms.append(new)
+        return _activate(y, "mish")
+
+    def _normalise(self, y, gamma, beta, bn):
+        """(BN of ``y``, the BN state after it)."""
         if self.train:
             mean, mean2 = self._moments(y)
             if not self.stats_gradient:
@@ -293,19 +381,17 @@ class _ApplyOps(_NCHWOps):
                 # constants in the backward pass.
                 mean, mean2 = mean.detach(), mean2.detach()
             var = torch.clamp(mean2 - mean.square(), min=0.0)
-            self.new_bn.append({
-                "mean": (BN_MOMENTUM * bn["mean"]
-                         + (1 - BN_MOMENTUM) * mean).detach(),
-                "var": (BN_MOMENTUM * bn["var"]
-                        + (1 - BN_MOMENTUM) * var).detach()})
+            new = {"mean": (BN_MOMENTUM * bn["mean"]
+                            + (1 - BN_MOMENTUM) * mean).detach(),
+                   "var": (BN_MOMENTUM * bn["var"]
+                           + (1 - BN_MOMENTUM) * var).detach()}
         else:
             mean, var = bn["mean"], bn["var"]
-            self.new_bn.append(bn)
+            new = bn
         inv = torch.rsqrt(var + BN_EPS)
         scale = (gamma * inv).to(self.dtype)
         shift = (beta - mean * gamma * inv).to(self.dtype)
-        y = y * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
-        return _activate(y, activation)
+        return y * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1), new
 
 
 
@@ -313,7 +399,7 @@ def apply(params, state, images, num_classes: int, train: bool = False,
           compute_dtype=torch.float32,
           csp_repeats=topology.DEFAULT_CSP_REPEATS,
           bn_stats_gradient: bool = True, sample_mask=None,
-          pallas_wgrad: bool = False):
+          pallas_wgrad: bool = False, arch: str = "yolov4"):
     """Forward with BatchNorm: images (B, H, W, 3) NHWC ->
     ([sbbox, mbbox, lbbox] NHWC float32 raw grids, new_state).
 
@@ -323,28 +409,60 @@ def apply(params, state, images, num_classes: int, train: bool = False,
     the backward pass; ``sample_mask`` (B,) 0/1 leaves padded samples out of
     them; ``pallas_wgrad`` routes every 3x3 stride-1 conv through
     ``ops.wgrad_cuda.conv3x3_s1``.  Counterpart of the JAX package's
-    ``network.apply``.
+    ``network.apply``.  ``arch`` "yolov4-p6" runs P6 (its params with
+    "norms"; four grids).
     """
     ops = _ApplyOps(params, state, train, compute_dtype,
                     stats_gradient=bn_stats_gradient,
                     sample_mask=sample_mask, pallas_wgrad=pallas_wgrad)
     x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-    outs = topology.yolov4(ops, x, num_classes, csp_repeats)
+    outs = GRAPHS[arch](ops, x, num_classes, tuple(csp_repeats))
     outs = [o.permute(0, 2, 3, 1).float().contiguous() for o in outs]
-    return outs, ({"bn": ops.new_bn} if train else state)
+    if not train:
+        return outs, state
+    new_state = {"bn": ops.new_bn}
+    if "norms" in state:
+        new_state["norms"] = ops.new_norms
+    return outs, new_state
 
 
-def fold_bn(params, state):
+def _scale_shift(gamma, beta, bn):
+    scale = gamma * (1.0 / torch.sqrt(bn["var"] + BN_EPS))
+    return scale, beta - bn["mean"] * scale
+
+
+def fold_bn(params, state, specs=None):
     """Fold BN into conv weight + bias:
-    w' = w*g/sqrt(v+eps), b' = beta - m*g/sqrt(v+eps)."""
+    w' = w*g/sqrt(v+eps), b' = beta - m*g/sqrt(v+eps).
+
+    With concat norms (P6; ``specs`` its ``conv_specs``): a plain conv
+    takes its half of the norm the same way (w' = w*s, b' = t) and ends in
+    mish; a conv that ends in BN + mish keeps its half as the epilogue's
+    second stage, keys "s" and "t": mish(s * mish(y + b) + t)."""
+    norms = params.get("norms")
+    if norms and specs is None:
+        raise ValueError("folding concat norms needs the conv_specs")
     folded = []
-    for p, bn in zip(params["convs"], state["bn"]):
+    for i, (p, bn) in enumerate(zip(params["convs"], state["bn"])):
         if bn is None:
-            folded.append({"w": p["w"], "b": p["b"]})
+            q = {"w": p["w"], "b": p.get("b")}
         else:
-            scale = p["gamma"] * (1.0 / torch.sqrt(bn["var"] + BN_EPS))
-            folded.append({"w": p["w"] * scale[:, None, None, None],
-                           "b": p["beta"] - bn["mean"] * scale})
+            scale, shift = _scale_shift(p["gamma"], p["beta"], bn)
+            q = {"w": p["w"] * scale[:, None, None, None], "b": shift}
+        norm = specs[i].norm if norms else None
+        if norm is not None:
+            site, off = norm
+            s, t = (v[off:off + p["w"].shape[0]] for v in _scale_shift(
+                norms[site]["gamma"], norms[site]["beta"],
+                state["norms"][site]))
+            if bn is None:      # a plain conv
+                q = {"w": q["w"] * s[:, None, None, None], "b": t}
+            else:
+                q["s"], q["t"] = s, t
+        if q["b"] is None:
+            raise ValueError(f"plain conv {i} feeds no norm: nothing to "
+                             f"fold it into")
+        folded.append(q)
     return {"convs": folded}
 
 
@@ -402,9 +520,11 @@ def prepare_folded(folded, device, compute_dtype=torch.float32):
             return {"wq": gemm_weight(p["wq"]).to(device),
                     "sw": p["sw"].to(device, torch.float32),
                     "b": p["b"].to(device, torch.float32)}
-        return {"w": p["w"].to(device, compute_dtype).contiguous(
-                    memory_format=torch.channels_last),
-                "b": p["b"].to(device, compute_dtype)}
+        out = {"w": p["w"].to(device, compute_dtype).contiguous(
+                   memory_format=torch.channels_last)}
+        out.update({k: p[k].to(device, compute_dtype)
+                    for k in ("b", "s", "t") if k in p})
+        return out
 
     convs = [prepare(p) for p in folded["convs"]]
     w1p, b1p, w2p = _s2d_stem_kernels(folded["convs"][0]["w"],
@@ -427,7 +547,9 @@ def cast(x, dtype):
 class _FoldedApplyOps(_NCHWOps):
     """Ops backend over folded params (every conv is w+b, no BN) on NCHW
     activations.  Every conv ends in ``_epilogue``, the custom op
-    ``conv_epilogue``."""
+    ``conv_epilogue``, or, with a second stage ("s", "t": P6), in
+    ``conv_epilogue_merge``.  A plain conv's norm is folded into it, so it
+    ends in mish, and ``norm_act`` has nothing left to do."""
 
     def __init__(self, params, compute_dtype=torch.float32, s2d_stem=False):
         self.params = params
@@ -483,14 +605,24 @@ class _FoldedApplyOps(_NCHWOps):
             y = F.conv2d(F.pad(x, (1, 0, 1, 0)), w, stride=2)
         else:
             y = F.conv2d(x, w, padding=kernel_size // 2)
+        if "s" in p:
+            return conv_epilogue_merge(y, cast(p["b"], self.dtype),
+                                       cast(p["s"], self.dtype),
+                                       cast(p["t"], self.dtype))
         return self._epilogue(y, p["b"], activation)
+
+    def plain_conv(self, x, filters):
+        return self.conv(x, filters, 1, activation="mish")
+
+    def norm_act(self, x):
+        return x
 
 
 
 def apply_folded(folded_params, images, num_classes: int,
                  compute_dtype=torch.float32,
                  csp_repeats=topology.DEFAULT_CSP_REPEATS,
-                 s2d_stem: bool = True, wrap_ops=None):
+                 s2d_stem: bool = True, wrap_ops=None, arch: str = "yolov4"):
     """Inference forward over BN-folded params.
 
     images (B, H, W, 3) NHWC -> [sbbox, mbbox, lbbox] raw grids, NHWC
@@ -498,10 +630,12 @@ def apply_folded(folded_params, images, num_classes: int,
     added in it, outputs cast back to float32 (as the JAX package does).
     ``wrap_ops``: None, or a callable that takes the ops backend and
     returns the op set the topology runs on (``parallel.spatial``).
+    ``arch`` "yolov4-p6": P6's four grids, over ``fold_bn``'s params with
+    their second stages.
     """
     ops = _FoldedApplyOps(folded_params, compute_dtype, s2d_stem=s2d_stem)
     if wrap_ops is not None:
         ops = wrap_ops(ops)
     x = images.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-    outs = topology.yolov4(ops, x, num_classes, csp_repeats)
+    outs = GRAPHS[arch](ops, x, num_classes, tuple(csp_repeats))
     return [o.permute(0, 2, 3, 1).float().contiguous() for o in outs]

@@ -11,6 +11,15 @@ Architecture (tf.keras reference custom_layers.py:72-198):
   - legacy darknet53 (unused by YOLOv4, kept for the reference's surface)
 The reference's activation choices are followed exactly, including leaky
 stem and pre/post-SPP convs.
+
+``yolov4_p6`` is YOLOv4-P6 of Scaled-YOLOv4 (arXiv:2011.08036; ScaledYOLOv4's
+yolov4-large branch, models/yolov4-p6.yaml and the blocks of
+models/common.py), on the same op set plus two ops: ``plain_conv`` (a 1x1
+conv with no BN, no bias and no activation) and ``norm_act`` (BN + mish
+over a concat).  Its serial parameter order is the order of the calls:
+every ``conv`` and ``plain_conv`` in one list, every ``norm_act`` in a
+second, each in the order the forward reaches it (``_csp``, ``_csp2`` and
+``_sppcsp`` say it block by block).
 """
 
 from __future__ import annotations
@@ -187,3 +196,101 @@ def darknet53(ops, x):
     for _ in range(4):
         x = residual(x, 512, 1024)
     return route_1, route_2, x
+
+
+# ---------------------------------------------------------------------------
+# YOLOv4-P6 (Scaled-YOLOv4)
+# ---------------------------------------------------------------------------
+
+# Residual depth of the six backbone stages and of every neck
+# BottleneckCSP2 (yolov4-p6.yaml).
+P6_DEPTH = (1, 3, 15, 15, 7, 7, 3)
+
+
+def _p6_conv(ops, x, filters, k, down=False):
+    """Conv of common.py: conv (pad k//2, no bias) -> BN -> mish.  A
+    stride-2 3x3 conv's symmetric pad 1 reads the same input rows as the
+    op set's top/left pad on an even side."""
+    return ops.conv(x, filters, k, downsampling=down, activation="mish")
+
+
+def _bottleneck(ops, x, c, shortcut: bool):
+    y = _p6_conv(ops, _p6_conv(ops, x, c, 1), c, 3)
+    return ops.add(x, y) if shortcut else y
+
+
+def _csp(ops, x, c2: int, n: int):
+    """BottleneckCSP(c2, n), c_ = c2 / 2: calls cv1, the n Bottlenecks,
+    cv3 (plain), cv2 (plain), the concat's norm, cv4."""
+    c_ = c2 // 2
+    y = _p6_conv(ops, x, c_, 1)
+    for _ in range(n):
+        y = _bottleneck(ops, y, c_, True)
+    y1 = ops.plain_conv(y, c_)
+    y2 = ops.plain_conv(x, c_)
+    return _p6_conv(ops, ops.norm_act(ops.concat([y1, y2])), c2, 1)
+
+
+def _csp2(ops, x, c2: int, n: int):
+    """BottleneckCSP2(c2, n), c_ = c2: calls cv1, the n Bottlenecks (no
+    shortcut), cv2 (plain), the concat's norm, cv3."""
+    x1 = _p6_conv(ops, x, c2, 1)
+    y1 = x1
+    for _ in range(n):
+        y1 = _bottleneck(ops, y1, c2, False)
+    y2 = ops.plain_conv(x1, c2)
+    return _p6_conv(ops, ops.norm_act(ops.concat([y1, y2])), c2, 1)
+
+
+def _sppcsp(ops, x, c2: int):
+    """SPPCSP(c2), c_ = c2: calls cv1, cv3, cv4, cv5, cv6, cv2 (plain),
+    the concat's norm, cv7."""
+    x1 = _p6_conv(ops, x, c2, 1)
+    x1 = _p6_conv(ops, x1, c2, 3)
+    x1 = _p6_conv(ops, x1, c2, 1)
+    y = ops.concat([x1, ops.maxpool(x1, 5), ops.maxpool(x1, 9),
+                    ops.maxpool(x1, 13)])
+    y1 = _p6_conv(ops, _p6_conv(ops, y, c2, 1), c2, 3)
+    y2 = ops.plain_conv(x, c2)
+    return _p6_conv(ops, ops.norm_act(ops.concat([y1, y2])), c2, 1)
+
+
+def yolov4_p6(ops, x, num_classes: int, depth=P6_DEPTH):
+    """YOLOv4-P6: image -> [P3, P4, P5, P6] raw conv outputs with
+    4*(num_classes+5) channels at strides 8/16/32/64.  ``depth``: the six
+    backbone stages' Bottlenecks, then the neck's (each BottleneckCSP2),
+    every entry at least 1."""
+    x = _p6_conv(ops, x, 32, 3)
+    x = _p6_conv(ops, x, 64, 3, down=True)                 # /2
+    x = _csp(ops, x, 64, depth[0])
+    taps = []
+    for width, n in zip((128, 256, 512, 1024, 1024), depth[1:6]):
+        x = _p6_conv(ops, x, width, 3, down=True)          # /4 ... /64
+        x = _csp(ops, x, width, n)
+        taps.append(x)
+    b8, b16, b32 = taps[1], taps[2], taps[3]
+    n = depth[6]
+
+    p6 = _sppcsp(ops, x, 512)                              # 13
+    x = ops.upsample(_p6_conv(ops, p6, 512, 1))            # 14, 15
+    x = ops.concat([_p6_conv(ops, b32, 512, 1), x])        # 16, 17
+    p5 = _csp2(ops, x, 512, n)                             # 18
+    x = ops.upsample(_p6_conv(ops, p5, 256, 1))            # 19, 20
+    x = ops.concat([_p6_conv(ops, b16, 256, 1), x])        # 21, 22
+    p4 = _csp2(ops, x, 256, n)                             # 23
+    x = ops.upsample(_p6_conv(ops, p4, 128, 1))            # 24, 25
+    x = ops.concat([_p6_conv(ops, b8, 128, 1), x])         # 26, 27
+    x = _csp2(ops, x, 128, n)                              # 28
+    out3 = _p6_conv(ops, x, 256, 3)                        # 29
+    x = ops.concat([_p6_conv(ops, x, 256, 3, down=True), p4])   # 30, 31
+    x = _csp2(ops, x, 256, n)                              # 32
+    out4 = _p6_conv(ops, x, 512, 3)                        # 33
+    x = ops.concat([_p6_conv(ops, x, 512, 3, down=True), p5])   # 34, 35
+    x = _csp2(ops, x, 512, n)                              # 36
+    out5 = _p6_conv(ops, x, 1024, 3)                       # 37
+    x = ops.concat([_p6_conv(ops, x, 512, 3, down=True), p6])   # 38, 39
+    x = _csp2(ops, x, 512, n)                              # 40
+    out6 = _p6_conv(ops, x, 1024, 3)                       # 41
+    out = 4 * (num_classes + 5)
+    return [ops.conv(o, out, 1, activation=None, batch_norm=False)
+            for o in (out3, out4, out5, out6)]

@@ -30,6 +30,19 @@ from .nms import top_k
 from .nms_cuda import nms_from_candidates
 
 
+def wh_exp(t):
+    """YOLOv4's size decode, before the anchor: exp(t)."""
+    return torch.exp(t)
+
+
+def wh_scaled(t):
+    """Scaled-YOLOv4's size decode, before the anchor: (2 sigmoid(t))^2."""
+    return (2.0 * torch.sigmoid(t)) ** 2
+
+
+WH_DECODES = {"yolov4": wh_exp, "yolov4-p6": wh_scaled}
+
+
 @functools.lru_cache(maxsize=16)
 def _scale_meta(grid_h: int, grid_w: int,
                 anchors: Tuple[Tuple[float, float], ...], stride: int,
@@ -72,9 +85,11 @@ def _gather_rows(x, idx):
 
 def select_candidates(raw_outputs: Sequence[torch.Tensor], anchors_grouped,
                       num_classes: int, strides: Sequence[int],
-                      xyscale: Sequence[float], img_size: int, k: int):
+                      xyscale: Sequence[float], img_size: int, k: int,
+                      wh_decode=wh_exp):
     """Steps 1-3: raw grids -> (cand_boxes (B, K, 4) normalised corners,
-    cand_scores (B, K, C))."""
+    cand_scores (B, K, C)).  ``wh_decode``: the size decode before the
+    anchor (``WH_DECODES``)."""
     anchors_np = np.asarray(anchors_grouped, np.float32)
     vals, logits, metas = [], [], []
     for i, raw in enumerate(raw_outputs):
@@ -103,7 +118,7 @@ def select_candidates(raw_outputs: Sequence[torch.Tensor], anchors_grouped,
     stride, xysc = metas[..., 4:5], metas[..., 5:6]
     xy = ((torch.sigmoid(logits[..., 0:2]) * xysc)
           - 0.5 * (xysc - 1.0) + grid) * stride
-    wh = torch.exp(logits[..., 2:4]) * anchor_wh
+    wh = wh_decode(logits[..., 2:4]) * anchor_wh
     cand_boxes = torch.cat([xy - wh / 2.0, xy + wh / 2.0],
                            dim=-1) / float(img_size)
     cand_scores = (torch.sigmoid(logits[..., 4:5])
@@ -116,19 +131,21 @@ def detect_fused(raw_outputs: Sequence[torch.Tensor], anchors_grouped,
                  xyscale: Sequence[float], img_size: int,
                  iou_threshold: float = 0.413, score_threshold: float = 0.3,
                  max_per_class: int = 100, max_total: int = 100,
-                 candidates: int = 256, clip: bool = True):
+                 candidates: int = 256, clip: bool = True,
+                 wh_decode=wh_exp):
     """Raw head grids -> (nmsed_boxes (B,T,4), nmsed_scores (B,T),
     nmsed_classes (B,T), valid_detections (B,)), decoding only the
     top-``candidates`` boxes.
 
-    raw_outputs: [sbbox, mbbox, lbbox] raw (B, g, g, 3*(5+C)) NHWC grids.
-    anchors_grouped: (3, 3, 2) pixel-unit anchors.
+    raw_outputs: one raw (B, g, g, A*(5+C)) NHWC grid a scale ([sbbox,
+    mbbox, lbbox] for YOLOv4, four for P6).  anchors_grouped: (scales, A,
+    2) pixel-unit anchors.  wh_decode: as ``select_candidates``.
     """
     device = raw_outputs[0].device
     with span("candidates", device=device):
         cand_boxes, cand_scores = select_candidates(
             raw_outputs, anchors_grouped, num_classes, strides, xyscale,
-            img_size, candidates)
+            img_size, candidates, wh_decode)
     with span("nms", device=device):
         return nms_from_candidates(cand_boxes, cand_scores, iou_threshold,
                                    score_threshold, max_per_class, max_total,

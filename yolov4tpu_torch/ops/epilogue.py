@@ -18,6 +18,14 @@ repeats that expression's float32 operations and bfloat16 roundings in
 their order, so the two agree bit for bit (the source's header).  No
 setting chooses between them: the route is the input's device.
 
+``conv_epilogue_merge(y, b, s, t)`` is the second mode, for a conv of
+YOLOv4-P6 whose output is one half of a concat that a BN + mish follows:
+``mish(s * mish(y + b) + t)``, the conv's own folded BN + mish and then
+its half of the concat's BN + mish, in the same single pass (the kernel
+``epilogue_merge``, a name of its own in a device trace).  Its plain
+version is the eager chain ``conv_epilogue_merge_reference``, with
+(s, t) in y's dtype as the bias is; the kernel equals it bit for bit.
+
 This module also holds that eager expression's parts: ``_mish``,
 ``_activate`` and ``_bias``, which ``models.network`` uses in every
 forward (training's, and BN inference's, end each conv in them).
@@ -27,9 +35,10 @@ The wrapper is a ``torch.library`` custom op
 ``torch.export`` traces the folded forward through it; a single-platform
 CUDA artifact holds it as it holds ``suppress_rank``, and ``serving``
 replaces it by ``conv_epilogue_reference`` in any other artifact.
-``CALLS`` counts the epilogues run through the op, ``LAUNCHES`` those of
-them that took the kernel; ``api.build_infer_fn``'s ``forward`` span
-reports both, and ``chip_smoke.py`` reads them.  The kernel is built at
+``CALLS`` counts the epilogues run through either op, ``LAUNCHES`` those
+of them that took the kernel, ``MERGES`` those in the second mode;
+``api.build_infer_fn``'s ``forward`` span reports the three, and
+``chip_smoke.py`` reads them.  The kernel is built at
 first use by ``ops.build``.
 """
 
@@ -44,10 +53,12 @@ import torch.nn.functional as F
 
 from . import build as kbuild
 
-# Epilogues run through conv_epilogue (either route), and of them the
-# launches of the CUDA kernel.
+# Epilogues run through conv_epilogue or conv_epilogue_merge (either
+# route), of them the launches of the CUDA kernel, and those run in the
+# second (merge) mode.
 CALLS = 0
 LAUNCHES = 0
+MERGES = 0
 
 ACTIVATIONS = {"linear": 0, "leaky": 1, "mish": 2}   # the kernel's codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,6 +79,11 @@ def _library():
     lib.conv_epilogue_launch.restype = ctypes.c_int
     lib.conv_epilogue_init.argtypes = [ctypes.c_void_p]
     lib.conv_epilogue_init.restype = ctypes.c_int
+    lib.conv_epilogue_merge_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.conv_epilogue_merge_launch.restype = ctypes.c_int
     return lib
 
 
@@ -116,28 +132,36 @@ def conv_epilogue(y, b, activation):
     ``y``.  A CUDA tensor launches the kernel (and raises if the launch
     fails), its output in channels_last memory; a tensor on another device
     runs ``conv_epilogue_reference``."""
-    global CALLS, LAUNCHES
+    global CALLS
     _check(y, b, activation)
     CALLS += 1
     if y.device.type != "cuda":
         return conv_epilogue_reference(y, b, activation)
+    return _launch("conv_epilogue_launch", y, (b,),
+                   (ACTIVATIONS[activation],), activation == "mish")
+
+
+def _launch(entry, y, vectors, codes, mish: bool):
+    """One launch of the library's ``entry`` over CUDA ``y`` (copied into
+    channels_last memory if it is not) and its (C,) ``vectors``: a new
+    channels_last tensor.  The entry takes (y, *vectors, out, rows, C,
+    dtype code, *codes, table, stream); ``mish``: whether bf16 reads the
+    mish table."""
+    global LAUNCHES
     y = y.contiguous(memory_format=torch.channels_last)
-    b = b.contiguous()
+    vectors = [v.contiguous() for v in vectors]
     out = torch.empty_like(y)        # channels_last, as y
     if out.numel() == 0:
         return out
-    lib = _library()
     with torch.cuda.device(y.device):
-        table = (y.dtype == torch.bfloat16 and activation == "mish"
+        table = (mish and y.dtype == torch.bfloat16
                  and _mish_table(y.device))
-        err = lib.conv_epilogue_launch(
-            y.data_ptr(), b.data_ptr(), out.data_ptr(),
-            y.numel() // y.shape[1], y.shape[1], _DTYPES[y.dtype],
-            ACTIVATIONS[activation], int(table),
-            torch.cuda.current_stream(y.device).cuda_stream)
+        err = getattr(_library(), entry)(
+            y.data_ptr(), *(v.data_ptr() for v in vectors), out.data_ptr(),
+            y.numel() // y.shape[1], y.shape[1], _DTYPES[y.dtype], *codes,
+            int(table), torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv_epilogue kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
     LAUNCHES += 1
     return out
 
@@ -148,6 +172,31 @@ def _conv_epilogue_fake(y, b, activation):
     if y.device.type == "cuda":
         return torch.empty_like(y, memory_format=torch.channels_last)
     return torch.empty_like(y)
+
+
+@torch.library.custom_op("yolov4tpu_torch::conv_epilogue_merge",
+                         mutates_args=(),
+                         schema="(Tensor y, Tensor b, Tensor s, Tensor t) "
+                                "-> Tensor")
+def conv_epilogue_merge(y, b, s, t):
+    """``mish(s * mish(y + b) + t)``: y (N, C, H, W) bfloat16 or float32;
+    b, s, t (C,) in y's dtype -> a new tensor like ``y``.  Routed as
+    ``conv_epilogue``: a CUDA tensor launches the kernel, its output in
+    channels_last memory; another device runs
+    ``conv_epilogue_merge_reference``."""
+    global CALLS, MERGES
+    for v in (b, s, t):
+        _check(y, v, "mish")
+    CALLS += 1
+    MERGES += 1
+    if y.device.type != "cuda":
+        return conv_epilogue_merge_reference(y, b, s, t)
+    return _launch("conv_epilogue_merge_launch", y, (b, s, t), (), True)
+
+
+@conv_epilogue_merge.register_fake
+def _conv_epilogue_merge_fake(y, b, s, t):
+    return _conv_epilogue_fake(y, b, "mish")
 
 
 def _mish(x):
@@ -185,3 +234,11 @@ def conv_epilogue_reference(y, b, activation: str):
     """The plain version: the folded forward's eager expression,
     ``_activate(y + _bias(b, y.dtype), activation)``."""
     return _activate(y + _bias(b, y.dtype), activation)
+
+
+def conv_epilogue_merge_reference(y, b, s, t):
+    """The plain version of the second mode: the eager chain
+    ``_activate(_activate(y + b) * s + t)``, mish both times, each
+    operation in y's dtype."""
+    m = _activate(y + _bias(b, y.dtype), "mish")
+    return _activate(m * _bias(s, y.dtype) + _bias(t, y.dtype), "mish")

@@ -34,6 +34,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .config import require_yolov4
 from .device import resolve_device
 from .ops import epilogue, nms_cuda  # noqa: F401  (registers the custom ops)
 
@@ -85,6 +86,7 @@ def export_detector(model, path: str, batch_size: int = 1,
         raise ValueError(
             f"input_dtype must be 'float32' or 'uint8', got {input_dtype!r}")
     cfg = model.config
+    require_yolov4(cfg, "export_detector")
     iou_t = (cfg.iou_threshold if iou_threshold is None
              else float(iou_threshold))
     score_t = (cfg.score_threshold if score_threshold is None

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .config import YoloConfig
+from .config import YoloConfig, require_yolov4
 from .device import resolve_device, to_device_async
 from .losses import yolo_loss
 from .models import network
@@ -596,10 +596,12 @@ def _allreduce_slab(mesh, tensors, w):
     count this is the valid-count-weighted mean of the JAX mesh step
     (train.py:438-465 there); with equal counts, the plain mean.  The JAX
     package's compiled step holds 1-12 all-reduces after XLA's combiner;
-    this one holds one, masked or not."""
-    flat = _pack(tensors, w)
-    dist.all_reduce(flat, group=mesh.group)
-    return _unpack(flat, tensors)
+    this one holds one, masked or not.  Pack, all-reduce and unpack run
+    in an ``allreduce`` span."""
+    with span("allreduce", device=w.device):
+        flat = _pack(tensors, w)
+        dist.all_reduce(flat, group=mesh.group)
+        return _unpack(flat, tensors)
 
 
 def _combine(mesh, grads, new_state, metrics, w):
@@ -787,6 +789,7 @@ class Trainer:
 
     def __init__(self, config: YoloConfig, num_classes: int, params, state,
                  mesh=None, schedule=None, optimizer=None, device="cuda"):
+        require_yolov4(config, "Trainer")
         self.config = config
         self.num_classes = num_classes
         if mesh is None and config.num_devices > 1:
