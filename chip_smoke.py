@@ -29,6 +29,12 @@ exits non-zero without printing a result:
      1280^2, b16, bfloat16, uint8, its launches counted around each call:
      205 ``conv_epilogue`` launches (7 of them merges) and one
      ``suppress_rank`` a call, and its img/s;
+  2d. training's BN + activation kernels (``ops.bn_act``) at the 107 BN
+     convs of the 608^2 training forward: at b8 the forward bit for bit
+     the eager expression given the kernel's scale and shift, and the
+     backward closer to float32 autograd than the eager bf16 autograd;
+     at b32 the device time of the 107 forwards and backwards by kernel,
+     against the bound and the eager chain;
   3. the main path through the user's entry points: ``Yolov4`` at full
      depth, 416x416, COCO-80, random darknet weights from a seed with the
      head biases calibrated to ~120 boxes per image, ``predict_batch`` at
@@ -207,6 +213,11 @@ Every path that runs folded forwards on the card (3, 3c, 7c, 7e, 10d and
 11) has the conv epilogue kernel's launches zeroed just before and read
 just after, and checks one launch a float conv: 110 a forward, 5 an int8
 forward (``counted_epilogues``); the ``kernels`` line sums those counts.
+Every path that trains on the card (5, 5b, 5c, 6a-c, 8e, 8g, 9a, 9b's
+ranks and emulation, 11c) does the same with the training BN + activation
+kernels: 107 ``bn_act`` launches a training forward and 107 ``bn_act_grad``
+a backward (``zero_bn_act``, ``checked_bn_act``), and the ``kernels`` line
+sums those counts.
 
 Each phase prints its seconds.  The line before the last is one JSON
 object with each kernel's launches, error against its plain version,
@@ -220,7 +231,6 @@ with status 1 at once.
 from __future__ import annotations
 
 import collections
-import concurrent.futures
 import dataclasses
 import json
 import pathlib
@@ -231,9 +241,9 @@ import time
 
 import numpy as np
 
-from yolov4tpu_torch.tools.measure import (cuda_ms, epilogue_shapes,
-                                          graph_ms, kernel_times,
-                                          wgrad_shapes)
+from yolov4tpu_torch.tools.measure import (bn_act_float32, bn_act_shapes,
+                                          cuda_ms, epilogue_shapes, graph_ms,
+                                          kernel_times, wgrad_shapes)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SCRATCH = ROOT / "build" / "chip_smoke"
@@ -253,6 +263,13 @@ IOU_OPS = 13
 # calibration, one folded forward a batch of 8 images (the s2d stem off).
 EPILOGUES = 110
 INT8_EPILOGUES = 5
+# BN convs of YOLOv4: one bn_act launch each in a training forward on the
+# card and one bn_act_grad launch each in its backward; the launches of
+# every path that trains on the card, each counted from zero around its run
+# (``zero_bn_act``, ``checked_bn_act``; phase 2d's checks and timings left
+# out).
+BN_SITES = 107
+BN_ACT_COUNTED = collections.Counter()
 
 
 class SmokeFailure(RuntimeError):
@@ -417,6 +434,33 @@ def counted_epilogues(torch, fn, forwards, label, per_forward=EPILOGUES):
     return out, n
 
 
+def zero_bn_act():
+    """Zero the training BN + activation kernels' launch counters, just
+    before a path that trains on the card (``checked_bn_act`` after it)."""
+    from yolov4tpu_torch.ops import bn_act
+    bn_act.LAUNCHES = bn_act.GRAD_LAUNCHES = 0
+
+
+def checked_bn_act(forwards, label, backwards=None, counts=None):
+    """The training BN + activation kernels' launches since ``zero_bn_act``
+    (or ``counts``, (bn_act, bn_act_grad) read in another process):
+    ``BN_SITES`` for each of ``forwards`` training forwards on the card and
+    of ``backwards`` (default ``forwards``) backwards, or the check fails.
+    Adds them to ``BN_ACT_COUNTED``, which the ``kernels`` line prints."""
+    from yolov4tpu_torch.ops import bn_act
+    if counts is None:
+        counts = (bn_act.LAUNCHES, bn_act.GRAD_LAUNCHES)
+    backwards = forwards if backwards is None else backwards
+    n, g = counts
+    check(n == BN_SITES * forwards and g == BN_SITES * backwards,
+          f"{label}: bn_act launched {n} times in {forwards} training "
+          f"forwards and bn_act_grad {g} times in {backwards} backwards, "
+          f"want {BN_SITES} each")
+    BN_ACT_COUNTED["bn_act"] += n
+    BN_ACT_COUNTED["bn_act_grad"] += g
+    return n, g
+
+
 def epilogue_err(torch, got, want) -> float:
     """The largest |got - want| where ``want`` is finite (NaN and inf are
     compared by their bits)."""
@@ -526,6 +570,149 @@ def epilogue_phase(torch, epilogue, card):
     log(f"conv_epilogue: largest |kernel - plain| over every check {worst!r}")
     out["max_abs_err"] = worst
     return out
+
+
+def bn_act_phase(torch, bn_act, card):
+    """Phase 2d: training's BN + activation kernels (csrc/bn_act.cu) at
+    the 107 BN convs of the 608^2 training forward.  At b8: the forward's
+    output bit for bit the eager ``_activate(y * scale + shift)`` given the
+    kernel's scale and shift, and dy, dgamma, dbeta at least as close to
+    float32 autograd of the bf16 forward (``bn_act_float32``) as the
+    eager bf16 autograd is.  At b32 (the training
+    cell's batch): the device time of the 107 forwards and of the 107
+    backwards (CUDA-graph replays; 7.2 GB of y in bf16, past the 50 MB
+    L2), each kernel's share from the profiler, against the bound (10
+    bytes a value: y read and out written forward, g and y read and dy
+    written backward, at 3.35 TB/s) and against the eager chain's forward
+    and backward.  Returns the times and the largest errors."""
+    from yolov4tpu_torch.ops.epilogue import _activate
+    shapes = bn_act_shapes(608, 8)
+    acts = collections.Counter(a for _, a in shapes)
+    check(len(shapes) == 107 and acts == {"mish": 70, "leaky": 37},
+          f"expected 107 BN convs (70 mish, 37 leaky), got {len(shapes)}: "
+          f"{dict(acts)}")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def site(shape):
+        n, c, h, w = shape
+        spread = 0.5 + 2.5 * torch.rand((c,), generator=gen, device="cuda")
+        y = (torch.randn((n, h, w, c), generator=gen, device="cuda")
+             * spread + torch.randn((c,), generator=gen, device="cuda"))
+        g = torch.randn((n, h, w, c), generator=gen, device="cuda")
+        vec = [torch.randn((c,), generator=gen, device="cuda")
+               for _ in range(4)]
+        return (y.to(torch.bfloat16).permute(0, 3, 1, 2),
+                g.to(torch.bfloat16).permute(0, 3, 1, 2), 1.0 + 0.2 * vec[0],
+                0.3 * vec[1], 0.2 * vec[2], 0.5 + vec[3].abs())
+
+    def grads(fn, y, g, gamma, beta):
+        y, gamma, beta = (t.detach().requires_grad_(True)
+                          for t in (y, gamma, beta))
+        out = fn(y, gamma, beta)[0]
+        return torch.autograd.grad(out, (y, gamma, beta), g)
+
+    def rel(got, want):
+        want = want.double()
+        return float((got.double() - want).norm() / want.norm())
+
+    worst = {"dy": 0.0, "dgamma": 0.0, "dbeta": 0.0}
+    eager_worst = dict(worst)
+    for i, (shape, act) in enumerate(shapes):
+        y, g, gamma, beta, mean, var = site(shape)
+        out, stats, _, _ = bn_act.bn_act_forward(y, gamma, beta, mean, var,
+                                                 act)
+        scale, shift = (stats[r].to(y.dtype).view(1, -1, 1, 1)
+                        for r in (3, 4))
+        want = _activate(y * scale + shift, act)
+        check(torch.equal(out.view(torch.int16), want.contiguous(
+            memory_format=torch.channels_last).view(torch.int16)),
+              f"bn_act forward != eager at site {i} {shape} {act}")
+
+        def plain(y_, g_, b_):
+            return bn_act.bn_act_reference(y_, g_, b_, mean, var, act)
+
+        def kernels(y_, g_, b_):
+            return bn_act.bn_act(y_, g_, b_, mean, var, act)
+
+        def yardstick(y_, g_, b_):
+            return bn_act_float32(y_, g_, b_, mean, var, act)
+
+        ref = grads(yardstick, y, g.float(), gamma, beta)
+        eager = grads(plain, y, g, gamma, beta)
+        got = grads(kernels, y, g, gamma, beta)
+        for name, a, e, r in zip(worst, got, eager, ref):
+            ka, ke = rel(a, r), rel(e, r)
+            check(ka <= ke, f"bn_act {name} at site {i} {shape} {act}: "
+                  f"{ka:.3g} from float32 autograd, eager bf16 {ke:.3g}")
+            worst[name] = max(worst[name], ka)
+            eager_worst[name] = max(eager_worst[name], ke)
+        del y, g, out, want, ref, eager, got
+    log(f"bn_act b8 608^2: forward equal to the eager expression bit for "
+        f"bit at the 107 sites; largest rel-RMS from float32 autograd of "
+        f"the bf16 forward, "
+        f"kernels {worst}, eager bf16 {eager_worst}")
+
+    shapes = bn_act_shapes(608, 32)
+    sites = [(site(shape), act) for shape, act in shapes]
+    values = sum(s[0].numel() for s, _ in sites)
+    bound = 10 * values / HBM_BYTES_PER_S * 1e3
+    saved = [bn_act.bn_act_forward(y, gamma, beta, mean, var, act)[1]
+             for (y, _, gamma, beta, mean, var), act in sites]
+
+    def forward():
+        return [bn_act.bn_act_forward(y, gamma, beta, mean, var, act)
+                for (y, _, gamma, beta, mean, var), act in sites]
+
+    def backward():
+        return [bn_act.bn_act_backward(g, y, gamma, stats, act)
+                for ((y, g, gamma, _, _, _), act), stats
+                in zip(sites, saved)]
+
+    fwd_ms = graph_ms(forward, n=1, repeats=3)
+    bwd_ms = graph_ms(backward, n=1, repeats=3)
+    split = kernel_times(lambda: (forward(), backward()), calls=2)
+    names = ("bn_act_stats_finish", "bn_act_grad_finish", "bn_act_stats",
+             "bn_act_fwd", "bn_act_grad_stats", "bn_act_grad")
+    by_kernel = collections.Counter()
+    for key, ms in split.items():
+        name = next((n for n in names if n + "<" in key or n + "(" in key),
+                    key)
+        by_kernel[name] += ms
+    per_value = {"bn_act_stats": 2, "bn_act_fwd": 4, "bn_act_grad_stats": 4,
+                 "bn_act_grad": 6}
+    for name, ms in by_kernel.most_common():
+        rate = (f", {per_value[name] * values / ms / 1e6:.0f} GB/s"
+                if name in per_value else "")
+        log(f"  bn_act b32 kernel {name}: {ms:.3f} ms a step{rate}")
+
+    def eager_forward():
+        for (y, _, gamma, beta, mean, var), act in sites:
+            bn_act.bn_act_reference(y.requires_grad_(True), gamma, beta,
+                                    mean, var, act)
+
+    def eager_both():
+        for (y, g, gamma, beta, mean, var), act in sites:
+            out = bn_act.bn_act_reference(y.requires_grad_(True), gamma,
+                                          beta, mean, var, act)[0]
+            torch.autograd.backward(out, g)
+            y.grad = None
+
+    eager_fwd = cuda_ms(eager_forward, n=1, repeats=3, warmup=1)
+    eager_all = cuda_ms(eager_both, n=1, repeats=3, warmup=1)
+    for (y, *_), _ in sites:
+        y.requires_grad_(False)
+    log(f"bn_act b32 608^2, 107 sites ({values / 1e9:.3f} G values): "
+        f"forward {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms device; bound "
+        f"{bound:.3f} ms (10 bytes a value), at "
+        f"{bound / (fwd_ms + bwd_ms):.1%} of it; eager chain forward "
+        f"{eager_fwd:.3f} ms, backward {eager_all - eager_fwd:.3f} ms; "
+        f"kernels / chain {(fwd_ms + bwd_ms) / eager_all:.3f} ({card})")
+    del sites, saved
+    torch.cuda.empty_cache()
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "bound_ms": bound,
+            "eager_fwd_ms": eager_fwd, "eager_ms": eager_all,
+            "by_kernel": dict(by_kernel), "rel_rms": worst,
+            "eager_rel_rms": eager_worst}
 
 
 def p6_phase(torch, epilogue, nms_cuda, card, calls: int = 3):
@@ -1368,6 +1555,7 @@ def train_phase(torch, wgrad_cuda, wpath, folder, lines, card, shapes):
 
     wgrad_cuda.LAUNCHES = 0
     wgrad_cuda.TC_LAUNCHES = 0
+    zero_bn_act()
     t0 = time.perf_counter()
     history = model.fit(gen, epochs=2, verbose=False)
     torch.cuda.synchronize()
@@ -1377,6 +1565,7 @@ def train_phase(torch, wgrad_cuda, wpath, folder, lines, card, shapes):
     trainer = model.trainer()
     steps = trainer.global_step
     check(steps == 2 * len(gen), f"fit ran {steps} steps, not {2 * len(gen)}")
+    bn = checked_bn_act(steps, "phase 5 fit")
     check(launches == per_step * steps, f"wgrad launched {launches} times in "
           f"{steps} steps, not {per_step} per step")
     check(tc_launches == launches, f"only {tc_launches} of the bf16 fit's "
@@ -1386,7 +1575,8 @@ def train_phase(torch, wgrad_cuda, wpath, folder, lines, card, shapes):
     check(trainer.params["convs"][0]["w"].is_cuda, "params are not on the card")
     log(f"main path (training): fit 2 epochs x {len(gen)} steps at b8 bf16, "
         f"pallas_wgrad: wgrad launched {launches} times ({per_step} per "
-        f"step), {tc_launches} on the tensor-core route, epoch losses {[round(h['loss'], 3) for h in history]}, "
+        f"step), {tc_launches} on the tensor-core route, bn_act and "
+        f"bn_act_grad {bn[0]} and {bn[1]}, epoch losses {[round(h['loss'], 3) for h in history]}, "
         f"{fit_s:.1f} s with JPEG decode and the first steps' set-up "
         f"({card})")
 
@@ -1401,7 +1591,9 @@ def train_phase(torch, wgrad_cuda, wpath, folder, lines, card, shapes):
         f"{valid.tolist()}")
 
     batch = gen.get_batch(0)
+    zero_bn_act()
     losses = [float(trainer.train_step(batch)["loss"]) for _ in range(10)]
+    checked_bn_act(10, "phase 5, 10 steps on one batch")
     check(all(np.isfinite(losses)), f"non-finite loss in {losses}")
     check(losses[-1] < losses[0], f"loss did not fall over 10 steps on one "
           f"batch: {losses}")
@@ -1411,11 +1603,13 @@ def train_phase(torch, wgrad_cuda, wpath, folder, lines, card, shapes):
 
     dev_cfg = dataclasses.replace(cfg, encode_on_device=True)
     firsts = []
+    zero_bn_act()
     for c in (cfg, dev_cfg):
         g = DataGenerator(lines, str(CLASSES), str(folder), config=c, seed=5)
         t = train.Trainer(c, 80, params0, state0)
         firsts.append(float(t.train_step(g.get_batch(0))["loss"]))
         del t
+    checked_bn_act(2, "phase 5 encode_on_device")
     check(abs(firsts[1] - firsts[0]) <= 1e-6 * abs(firsts[0]),
           f"device-encoded first loss {firsts[1]} != host-encoded "
           f"{firsts[0]}")
@@ -1441,8 +1635,10 @@ def fidelity_phase(torch, params0, state0, folder, lines, card):
         out = train._make_grad_and_metrics(80, c)(*on)
         return train.tree_map(lambda t: t.detach().cpu(), out)
 
+    zero_bn_act()
     g_k, st_k, m_k = run(cfg, "cuda")
     g_c, st_c, m_c = run(dataclasses.replace(cfg, pallas_wgrad=False), "cuda")
+    checked_bn_act(2, "phase 5b f32 kernel and cuDNN wgrad")
     loss_k, loss_c = float(m_k["loss"]), float(m_c["loss"])
     check(abs(loss_k - loss_c) <= 1e-6 * abs(loss_c),
           f"f32 loss with the kernel {loss_k} != with cuDNN wgrad {loss_c}")
@@ -1458,14 +1654,18 @@ def fidelity_phase(torch, params0, state0, folder, lines, card):
         f"{loss_k!r} vs {loss_c!r}, BN state equal, gradient rel-RMS max "
         f"{max(rel):.3g} median {statistics.median(rel):.3g} (limit 1e-4)")
 
+    zero_bn_act()
     t0 = time.perf_counter()
     g_cpu, _, m_cpu = run(cfg, "cpu")
     cpu_s = time.perf_counter() - t0
+    checked_bn_act(0, "phase 5b on the CPU")
     noise = torch.Generator().manual_seed(11)
     image = batch["image"]
     moved = dict(batch, image=image * (1 + NOISE_EPS * torch.randn(
         image.shape, generator=noise)))
+    zero_bn_act()
     g_p, _, m_p = run(cfg, "cuda", moved)
+    checked_bn_act(1, "phase 5b perturbed")
     loss_cpu, loss_p = float(m_cpu["loss"]), float(m_p["loss"])
     rel, own = grad_rel_rms(g_k, g_cpu), grad_rel_rms(g_p, g_k)
     loss_rel = abs(loss_k - loss_cpu) / abs(loss_cpu)
@@ -1538,6 +1738,7 @@ def rate_phase(torch, params0, state0, folder, lines, card):
                                       batch_size=bsz)
             trainer = train.Trainer(cfg, 80, params0, state0)
             dev = trainer._place(train.tree_map(torch.as_tensor, batch))
+            zero_bn_act()
             for _ in range(2):
                 trainer.train_step(dev)
             torch.cuda.synchronize()
@@ -1550,6 +1751,7 @@ def rate_phase(torch, params0, state0, folder, lines, card):
             rate = iters * bsz / (time.perf_counter() - t0)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             split = step_split(torch, trainer, batch)
+            checked_bn_act(2 + iters + 1, f"phase 5c b{bsz}")
             rates.setdefault((bsz, flag), []).append(rate)
             log(f"train step bf16 b{bsz} pallas_wgrad={flag}: {rate:.1f} "
                 f"img/s ({1e3 * bsz / rate:.1f} ms a step); split "
@@ -1656,6 +1858,7 @@ def persistence_phase(torch, nms_cuda, wgrad_cuda, wpath, folder, lines,
                               str(root / "evalmap"), every=2, verbose=0)
     wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
     nms_cuda.SUPPRESS_LAUNCHES = 0
+    zero_bn_act()
     history = model.fit(gen, epochs=2, callbacks=[cosine, ck, evalmap],
                         verbose=False, resume_dir=str(resume))
     torch.cuda.synchronize()
@@ -1665,6 +1868,7 @@ def persistence_phase(torch, nms_cuda, wgrad_cuda, wpath, folder, lines,
     sl = nms_cuda.SUPPRESS_LAUNCHES
     calls = -(-n_images // 2)      # export_prediction's batches of 2
     check(steps == 2 * len(gen), f"fit ran {steps} steps")
+    checked_bn_act(steps, "persistence a")
     check(wl == per_step * steps and tc == wl, f"wgrad launched {wl} times "
           f"({tc} on the tensor cores) in {steps} steps")
     check(sl == calls, f"EvalMapCallback's evaluation launched the sorted "
@@ -1694,9 +1898,11 @@ def persistence_phase(torch, nms_cuda, wgrad_cuda, wpath, folder, lines,
     crashed = Yolov4(weight_path=str(wpath), class_name_path=classes,
                      config=cfg)
     wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+    zero_bn_act()
     resumed = crashed.fit(gen, epochs=3, verbose=False,
                           resume_dir=str(resume))
     torch.cuda.synchronize()
+    checked_bn_act(len(gen), "persistence b")
     t_b = crashed.trainer()
     wl, tc = wgrad_counts()
     lr2 = float(np.float32(cosine.lr(2)))
@@ -1752,9 +1958,11 @@ def persistence_phase(torch, nms_cuda, wgrad_cuda, wpath, folder, lines,
     torch.backends.cudnn.benchmark = False
     batch = gen.get_batch(0)
     wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+    zero_bn_act()
     loss_a = float(trainer.train_step(batch)["loss"])
     loss_b = float(fresh.train_step(batch)["loss"])
     wl, tc = wgrad_counts()
+    checked_bn_act(2, "persistence c")
     check(wl == 2 * per_step and tc == wl, f"wgrad launched {wl} times in "
           f"two steps")
     launches["wgrad"] += wl
@@ -2575,10 +2783,12 @@ def multiscale_fit_phase(torch, wgrad_cuda, nms_cuda, wpath, folder, lines,
     torch.cuda.reset_peak_memory_stats()
     before = route_counts()
     wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+    zero_bn_act()
     t0 = time.perf_counter()
     history = model.fit(gen, epochs=2, verbose=False)
     torch.cuda.synchronize()
     launches, tc = wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES
+    bn = checked_bn_act(len(steps), "8e multi-scale fit")
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     d = since(before)
@@ -2610,7 +2820,8 @@ def multiscale_fit_phase(torch, wgrad_cuda, nms_cuda, wpath, folder, lines,
         f"at b{batch} bf16, pallas_wgrad, mosaic+hflip+jitter, multi_scale="
         f"{scales} every batch: sizes drawn {sizes} ({len(set(sizes))} "
         f"distinct); wgrad launched {launches} times ({tc} on the tensor "
-        f"cores, 37 a step at every size); routes: native augmented "
+        f"cores, 37 a step at every size), bn_act and bn_act_grad {bn[0]} "
+        f"and {bn[1]}; routes: native augmented "
         f"batches {d[1]} (samples redone in Python {d[3]}), Python batches "
         f"{d[2]}; losses "
         f"{[round(l, 1) for *_, l in steps]}; fit {fit_s:.1f} s, steps "
@@ -2685,6 +2896,7 @@ def starvation_phase(torch, wgrad_cuda, wpath, folder, lines, card,
     gen = DataGenerator(many, str(CLASSES), str(folder), config=cfg, seed=11)
     p0, s0 = weights.load_darknet_weights(str(wpath), 80)
     wgrad_cuda.LAUNCHES = 0
+    zero_bn_act()
     t0 = time.perf_counter()
     for i in range(3):
         gen.get_batch(i)
@@ -2721,6 +2933,7 @@ def starvation_phase(torch, wgrad_cuda, wpath, folder, lines, card,
     check(np.isfinite(history[-1]["loss"]), f"loss {history}")
     check(wgrad_cuda.LAUNCHES == 37 * (7 + steps), f"wgrad launched "
           f"{wgrad_cuda.LAUNCHES} times in {7 + steps} steps")
+    checked_bn_act(7 + steps, "8g starvation")
     starved = max(0.0, 1 - steps * step_s / epoch_s)
     after_fill = max(0.0, 1 - steps * step_s / (epoch_s - fill))
     log(f"host vs step at b{batch} {size}^2 bf16 pallas_wgrad, "
@@ -2867,8 +3080,10 @@ def nccl_phase(torch, wgrad_cuda, wpath, folder, lines, card, per_step):
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     plain = train.Trainer(cfg, 80, p0, s0)
+    zero_bn_act()
     for b in batches:
         plain.train_step(b)
+    checked_bn_act(len(batches), "9a plain steps")
     meshed = train.Trainer(cfg, 80, p0, s0, mesh=mesh)
     slab = CountedSlab(torch, train)
     collectives = []
@@ -2881,10 +3096,12 @@ def nccl_phase(torch, wgrad_cuda, wpath, folder, lines, card, per_step):
     dist.all_reduce = counted_all_reduce
     try:
         wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+        zero_bn_act()
         for b in batches:
             meshed.train_step(b)
         torch.cuda.synchronize()
         launches, tc = wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES
+        checked_bn_act(len(batches), "9a mesh steps")
     finally:
         dist.all_reduce = real_all_reduce
         slab.close()
@@ -2905,10 +3122,12 @@ def nccl_phase(torch, wgrad_cuda, wpath, folder, lines, card, per_step):
     del plain, meshed
 
     fused = train.Trainer(cfg, 80, p0, s0, mesh=mesh)
+    zero_bn_act()
     fused.train_step(batches[0])
     two = train.Trainer(cfg, 80, p0, s0, mesh=mesh)
     step = train.make_train_step_twophase(80, cfg, two.optimizer, mesh)
     two.state, _ = step(two.params, two.state, two._place(batches[0]))
+    checked_bn_act(2, "9a fused and two-phase steps")
     diff = first_difference(torch, all_tensors(two), all_tensors(fused))
     check(diff is None, f"twophase != fused after one step: {diff}")
     log("9a make_train_step_twophase == the fused mesh step bit for bit "
@@ -2921,6 +3140,7 @@ def nccl_phase(torch, wgrad_cuda, wpath, folder, lines, card, per_step):
         DataGenerator(lines, str(CLASSES), str(folder), config=cfg,
                       seed=9).get_batch(i) for i in (0, 1, 0, 1)))
     rates = {}
+    zero_bn_act()
     for on_mesh in (True, False, False, True):
         trainer = train.Trainer(dp_config(batch_size=32), 80, p0, s0,
                                 mesh=mesh if on_mesh else None)
@@ -2939,6 +3159,8 @@ def nccl_phase(torch, wgrad_cuda, wpath, folder, lines, card, per_step):
             mb, split = slab_split(torch, trainer, b32)
         del trainer, dev
         torch.cuda.empty_cache()
+    # 7 steps a trainer, and the first mesh trainer's slab_split step
+    checked_bn_act(4 * 7 + 1, "9a b32 rates")
     log(f"9a b32 bf16 train step, in turns (mesh, plain, plain, mesh): "
         f"{rates[True][0]:.1f}, {rates[False][0]:.1f}, {rates[False][1]:.1f},"
         f" {rates[True][1]:.1f} img/s ({card})")
@@ -2968,7 +3190,7 @@ def dp_worker(rank: int, work: pathlib.Path) -> int:
     from yolov4tpu_torch.api import Yolov4
     from yolov4tpu_torch.callbacks import CheckpointCallback
     from yolov4tpu_torch.data.pipeline import DataGenerator
-    from yolov4tpu_torch.ops import nms_cuda, wgrad_cuda
+    from yolov4tpu_torch.ops import bn_act, nms_cuda, wgrad_cuda
     from yolov4tpu_torch.parallel import init_distributed
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2988,13 +3210,16 @@ def dp_worker(rank: int, work: pathlib.Path) -> int:
     real_step = trainer.train_step
 
     def counted_step(batch):
-        before = (wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES, slab.calls)
+        before = (wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES, slab.calls,
+                  bn_act.LAUNCHES, bn_act.GRAD_LAUNCHES)
         t0 = time.perf_counter()
         metrics = real_step(batch)
         torch.cuda.synchronize()
         steps.append({"wgrad": wgrad_cuda.LAUNCHES - before[0],
                       "tc": wgrad_cuda.TC_LAUNCHES - before[1],
                       "slabs": slab.calls - before[2],
+                      "bn_act": bn_act.LAUNCHES - before[3],
+                      "bn_act_grad": bn_act.GRAD_LAUNCHES - before[4],
                       "s": time.perf_counter() - t0})
         return metrics
 
@@ -3123,6 +3348,8 @@ def gloo_phase(torch, wpath, folder, lines, card, per_step):
             check(s["wgrad"] == per_step and s["tc"] == s["wgrad"]
                   and s["slabs"] == 1, f"rank {r} step {s}: not "
                   f"{per_step} tensor-core wgrad launches and one slab")
+            checked_bn_act(1, f"9b rank {r}",
+                           counts=(s["bn_act"], s["bn_act_grad"]))
         check(rk["masked_step"] and rk["masked_eval"], f"rank {r}: the "
               "ragged tail's masked step or the masked eval did not run")
         check(rk["predict_launches"] == 1, f"rank {r}: predict_batch "
@@ -3149,7 +3376,9 @@ def gloo_phase(torch, wpath, folder, lines, card, per_step):
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+    zero_bn_act()
     params, state = dp_emulation(torch, wpath, folder, lines)
+    checked_bn_act(4, "9b emulation, 2 steps of 2 ranks")
     torch.backends.cudnn.deterministic = False
     got_p, got_s, _, _ = ckpt.load_npz(str(work / "ck_r0_0.npz"))
     want = train.leaves(params) + train.leaves(state)
@@ -4218,6 +4447,7 @@ def cli_train_phase(torch, busy, classes, folder, card, per_step):
             "--ckpt", str(out), "--out", str(out / "final.npz"),
             "--weights", str(busy), "--device", "cuda"]
     wgrad_cuda.LAUNCHES = wgrad_cuda.TC_LAUNCHES = 0
+    zero_bn_act()
     t0 = time.perf_counter()
     model, _ = captured(train_cli.main, argv)
     torch.cuda.synchronize()
@@ -4226,6 +4456,7 @@ def cli_train_phase(torch, busy, classes, folder, card, per_step):
     steps = trainer.global_step
     n, tc = wgrad_cuda.LAUNCHES, wgrad_cuda.TC_LAUNCHES
     check(steps == 2, f"train.py ran {steps} steps, want 2")
+    checked_bn_act(steps, "11c train.py")
     check(n == per_step * steps and tc == n, f"train.py: wgrad launched "
           f"{n} times ({tc} on the tensor cores) in {steps} steps, want "
           f"{per_step} a step, all on the tensor cores")
@@ -4350,7 +4581,8 @@ def main() -> int:
     from yolov4tpu_torch import weights
     from yolov4tpu_torch.api import Yolov4
     from yolov4tpu_torch.config import DEFAULT_CONFIG
-    from yolov4tpu_torch.ops import build, epilogue, nms_cuda, wgrad_cuda
+    from yolov4tpu_torch.ops import (bn_act, build, epilogue, nms_cuda,
+                                     wgrad_cuda)
 
     # Every float32 comparison below runs in full float32: cuDNN would
     # otherwise run float32 convolutions in TF32.
@@ -4374,9 +4606,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    sources = ("suppress_rank", "suppress", "wgrad_3x3", "conv_epilogue")
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        sos = list(pool.map(build.build, sources))   # one nvcc each
+    sos = build.build_many(("suppress_rank", "suppress", "wgrad_3x3",
+                            "conv_epilogue", "bn_act"))
     log(f"built {', '.join(so.name for so in sos)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for so in sos:
@@ -4394,6 +4625,8 @@ def main() -> int:
     epi["max_abs_err"] = max(epi["max_abs_err"],
                              p6_phase(torch, epilogue, nms_cuda, card))
     phase_done("2c (YOLOv4-P6: merge epilogue, predict_batch)")
+    bna = bn_act_phase(torch, bn_act, card)
+    phase_done("2d (training BN + activation kernels vs eager)")
 
     # --- 3. the main path ------------------------------------------------
     SCRATCH.mkdir(parents=True, exist_ok=True)
@@ -4632,7 +4865,25 @@ def main() -> int:
                 "bound_by": "bytes", "library_ms": None,
                 "f32": {"device_ms": epi["f32"]["all"]["ms"],
                         "plain_ms": epi["f32"]["plain_ms"],
-                        "bound_ms": epi["f32"]["all"]["bound_ms"]}}]
+                        "bound_ms": epi["f32"]["all"]["bound_ms"]}},
+               {"name": "bn_act", "route": "cuda",
+                "source": "yolov4tpu_torch/csrc/bn_act.cu",
+                "replaces": None,
+                # the training paths' launches, each path's counted from
+                # zero around its run (phase 2d's checks and timings left
+                # out); the gloo ranks' included
+                "launches": BN_ACT_COUNTED["bn_act"],
+                "grad_launches": BN_ACT_COUNTED["bn_act_grad"],
+                "rel_rms": bna["rel_rms"],
+                "eager_rel_rms": bna["eager_rel_rms"],
+                # the 107 sites of a 608^2 b32 step, bf16: device time
+                # (graph_ms) forward and backward, the eager chain, the
+                # bound
+                "device_ms": bna["fwd_ms"] + bna["bwd_ms"],
+                "fwd_ms": bna["fwd_ms"], "bwd_ms": bna["bwd_ms"],
+                "plain_ms": bna["eager_ms"],
+                "bound_ms": bna["bound_ms"], "bound_by": "bytes",
+                "library_ms": None}]
     spatial = served10["spatial"]
     # Phase 10d's halo exchanges (plain torch copies and all_gather, no
     # kernel of their own): both ranks' count, per forward, and the rows

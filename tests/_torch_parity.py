@@ -144,6 +144,16 @@ def small_tree(seed: int = 0, convs=((3, 3, 8, True), (1, 8, 6, False),
     return {"convs": layers}, {"bn": bn}
 
 
+def remove_at_teardown(request, folder) -> None:
+    """Remove a module fixture's folder at its teardown, unless a test of
+    the session has failed: the ranks' weights, checkpoints and outputs run
+    to hundreds of MB a module, and a whole run would otherwise keep them
+    all until it ends."""
+    import shutil
+    if not request.session.testsfailed:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 @pytest.fixture
 def no_cluster(monkeypatch):
     """No process group and no cluster variables (torchrun's, or those by

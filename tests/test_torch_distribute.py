@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 
 from _torch_parity import (IMG, SHALLOW, DPWorkers, assert_detections_equal,
-                           dp_leaves, images, port_calibrated)
+                           dp_leaves, images, port_calibrated,
+                           remove_at_teardown)
 from yolov4tpu import api as japi
 from yolov4tpu.config import YoloConfig as JaxConfig
 from yolov4tpu_torch import api as tapi
@@ -71,7 +72,7 @@ def _read_predictions(folder):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(tmp_path_factory, request):
     work = tmp_path_factory.mktemp("distribute")
     params, state, _ = port_calibrated(C)
     folder = work / "images"
@@ -114,7 +115,8 @@ def run(tmp_path_factory):
         b = BATCHES[n][1]
         jax_out[n] = [o[start:start + b] for o in whole]
         start += b
-    return work, workers.results(), single, single_int8, jax_out
+    yield work, workers.results(), single, single_int8, jax_out
+    remove_at_teardown(request, work)
 
 
 def _outputs(r, prefix, name):

@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from _torch_parity import (IMG, SHALLOW, DPWorkers, background,
-                           dp_emulation, dp_leaves, to_torch,
-                           torch_params, train_batch)
+                           dp_emulation, dp_leaves, remove_at_teardown,
+                           to_torch, torch_params, train_batch)
 from yolov4tpu_torch import train as ttrain
 from yolov4tpu_torch.config import YoloConfig
 from yolov4tpu_torch.parallel import Mesh
@@ -50,7 +50,7 @@ def _emulate(batches):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(tmp_path_factory, request):
     params, state = torch_params(C)
     batches = {"b4": train_batch(41, 4, C)[0], "b3": train_batch(42, 3, C)[0]}
     spec = {"num_classes": C, "scenarios": [
@@ -59,10 +59,11 @@ def run(tmp_path_factory):
         {"name": "fused", "kind": "step", "config": KW, "batch": "b4"},
         {"name": "twophase", "kind": "twophase", "config": KW,
          "batch": "b4"}]}
-    workers = DPWorkers(tmp_path_factory.mktemp("dp_accum"), spec, params,
-                        state, batches)
+    work = tmp_path_factory.mktemp("dp_accum")
+    workers = DPWorkers(work, spec, params, state, batches)
     emulated = background(_emulate, batches)
-    return emulated(), workers.results()
+    yield emulated(), workers.results()
+    remove_at_teardown(request, work)
 
 
 def _assert_equal(out, name, want):

@@ -13,8 +13,8 @@ run over a group with a collective timeout of 3 s.
 import numpy as np
 import pytest
 
-from _torch_parity import (IMG, SHALLOW, DPWorkers, dp_leaves, torch_params,
-                           train_batch)
+from _torch_parity import (IMG, SHALLOW, DPWorkers, dp_leaves,
+                           remove_at_teardown, torch_params, train_batch)
 
 C = 3
 KW = dict(img_size=[IMG, IMG, 3], batch_size=2, csp_repeats=list(SHALLOW),
@@ -23,13 +23,14 @@ TIMEOUT, SLEEP = 3.0, 6.0
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(tmp_path_factory, request):
     spec = {"num_classes": C, "scenarios": [
         {"name": "eval", "kind": "rank0_eval", "config": KW, "batch": "b4",
          "timeout": TIMEOUT, "sleep": SLEEP}]}
-    return DPWorkers(tmp_path_factory.mktemp("dp_callbacks"), spec,
-                     *torch_params(C),
-                     {"b4": train_batch(31, 4, C)[0]}).results()
+    work = tmp_path_factory.mktemp("dp_callbacks")
+    yield DPWorkers(work, spec, *torch_params(C),
+                    {"b4": train_batch(31, 4, C)[0]}).results()
+    remove_at_teardown(request, work)
 
 
 def _assert_ranks_equal(r0, r1, name):

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import (IMG, SHALLOW, DPWorkers, dp_leaves, images,
-                           torch_params)
+                           remove_at_teardown, torch_params)
 
 C = 3
 FIT = dict(img_size=[IMG, IMG, 3], batch_size=2, csp_repeats=list(SHALLOW),
@@ -43,7 +43,7 @@ def _write_images(folder):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(tmp_path_factory, request):
     work = tmp_path_factory.mktemp("dp_fit")
     params, state = torch_params(C)
     lines, val_lines, classes = _write_images(work / "images")
@@ -52,7 +52,8 @@ def run(tmp_path_factory):
            "seed": 0}
     spec = {"num_classes": C, "scenarios": [
         dict(fit, name="fit"), dict(fit, name="unseeded", seed_per_rank=True)]}
-    return work, DPWorkers(work, spec, params, state, {}).results()
+    yield work, DPWorkers(work, spec, params, state, {}).results()
+    remove_at_teardown(request, work)
 
 
 def test_fit_one_writer_and_equal_restores(run):

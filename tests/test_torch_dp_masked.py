@@ -31,8 +31,8 @@ import pytest
 import torch
 
 from _torch_parity import (IMG, SHALLOW, DPWorkers, conv_leaves, dp_leaves,
-                           rel_rms, torch_params, train_batch,
-                           well_conditioned)
+                           rel_rms, remove_at_teardown, torch_params,
+                           train_batch, well_conditioned)
 from yolov4tpu import train as jtrain
 from yolov4tpu.config import YoloConfig as JaxConfig
 from yolov4tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -51,7 +51,7 @@ def _perturbed(batch, eps=1e-6, seed=1):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(tmp_path_factory, request):
     params, state = well_conditioned(C)
     batches = {"b3": train_batch(21, 3, C)[0], "b1": train_batch(22, 1, C)[0]}
     # Heterogeneous samples, so a mis-weighted combination cannot pass by
@@ -60,8 +60,8 @@ def run(tmp_path_factory):
     spec = {"num_classes": C, "scenarios": [
         {"name": name, "kind": "trainer", "config": KW, "optimizer": "sgd",
          "batches": [b]} for name, b in CASES.items()]}
-    workers = DPWorkers(tmp_path_factory.mktemp("dp_masked"), spec,
-                        *torch_params(C), batches)
+    work = tmp_path_factory.mktemp("dp_masked")
+    workers = DPWorkers(work, spec, *torch_params(C), batches)
     jcfg = JaxConfig(**{k: tuple(v) if isinstance(v, list) else v
                         for k, v in KW.items()})
     opt = optax.sgd(KW["learning_rate"])
@@ -76,7 +76,8 @@ def run(tmp_path_factory):
     for key, batch in padded.items():
         p, s, _, m = compiled(params, state, opt.init(params), batch)
         jax_out[key] = jax.tree.map(np.asarray, (p, s, m))
-    return workers.results(), jax_out
+    yield workers.results(), jax_out
+    remove_at_teardown(request, work)
 
 
 @pytest.mark.parametrize("name", list(CASES))

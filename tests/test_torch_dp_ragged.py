@@ -23,8 +23,9 @@ import numpy as np
 import pytest
 
 from _torch_parity import (IMG, SHALLOW, DPWorkers, background,
-                           dp_emulation, dp_leaves, to_torch, torch_params,
-                           train_batch, well_conditioned)
+                           dp_emulation, dp_leaves, remove_at_teardown,
+                           to_torch, torch_params, train_batch,
+                           well_conditioned)
 from _torch_dp_worker import SGD
 from yolov4tpu import train as jtrain
 from yolov4tpu.config import YoloConfig as JaxConfig
@@ -62,7 +63,7 @@ def _emulate(batches):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(tmp_path_factory, request):
     params, state = well_conditioned(C)
     batches = {"b3": train_batch(21, 3, C)[0], "b1": train_batch(22, 1, C)[0]}
     # Heterogeneous samples, so a mis-weighted combination cannot pass by
@@ -74,14 +75,15 @@ def run(tmp_path_factory):
         {"name": "tail1", "kind": "trainer", "config": KW,
          "optimizer": "sgd", "batches": ["b1"]},
         {"name": "eval", "kind": "trainer", "config": KW, "eval": ["b3"]}]}
-    workers = DPWorkers(tmp_path_factory.mktemp("dp_ragged"), spec,
-                        *torch_params(C), batches)
+    work = tmp_path_factory.mktemp("dp_ragged")
+    workers = DPWorkers(work, spec, *torch_params(C), batches)
     emulated = background(_emulate, batches)
     step = jtrain.make_eval_step(C, _cfg(JaxConfig), mesh=jax_make_mesh(2),
                                  masked=True)
     loss_j = float(step(params, state, jtrain.pad_mask_batch(batches["b3"],
                                                              4)))
-    return emulated(), workers.results(), loss_j
+    yield emulated(), workers.results(), loss_j
+    remove_at_teardown(request, work)
 
 
 def _assert_equal(out, name, want):

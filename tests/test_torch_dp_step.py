@@ -27,8 +27,9 @@ import pytest
 import torch
 
 from _torch_parity import (IMG, SHALLOW, DPWorkers, adam_step_agreement,
-                           background, dp_emulation, dp_leaves, to_torch,
-                           torch_params, train_batch, well_conditioned)
+                           background, dp_emulation, dp_leaves,
+                           remove_at_teardown, to_torch, torch_params,
+                           train_batch, well_conditioned)
 from yolov4tpu import train as jtrain
 from yolov4tpu.config import YoloConfig as JaxConfig
 from yolov4tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -52,13 +53,14 @@ def _perturbed(batch, eps=1e-6, seed=1):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(tmp_path_factory, request):
     params, state = well_conditioned(C)
     batch, _ = train_batch(11, 4, C)
     spec = {"num_classes": C, "scenarios": [
         {"name": "plain", "kind": "step", "config": KW, "batch": "b4"}]}
-    started = background(DPWorkers, tmp_path_factory.mktemp("dp_step"),
-                         spec, *torch_params(C), {"b4": batch})
+    work = tmp_path_factory.mktemp("dp_step")
+    started = background(DPWorkers, work, spec, *torch_params(C),
+                         {"b4": batch})
     jcfg = _cfg(JaxConfig)
     opt = jtrain.make_optimizer(jcfg)
     step = jtrain.make_train_step(C, jcfg, opt, mesh=jax_make_mesh(2),
@@ -73,7 +75,8 @@ def run(tmp_path_factory):
     _, _, _, m_p = compiled(params, state, opt.init(params),
                             _perturbed(batch))
     jax_out = jax.tree.map(np.asarray, (p_j, s_j, m_j, m_p))
-    return emulated(), workers.results(), jax_out
+    yield emulated(), workers.results(), jax_out
+    remove_at_teardown(request, work)
 
 
 def _emulate(batch):

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from _torch_parity import (IMG, SHALLOW, DPWorkers, assert_detections_equal,
-                           images, port_calibrated)
+                           images, port_calibrated, remove_at_teardown)
 from yolov4tpu import api as japi
 from yolov4tpu.config import YoloConfig as JaxConfig
 from yolov4tpu_torch import api as tapi
@@ -78,7 +78,7 @@ def _stacked(fn, names):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def run(tmp_path_factory, request):
     work = tmp_path_factory.mktemp("spatial")
     params, state, _ = port_calibrated(C)
     folder = work / "images"
@@ -118,7 +118,8 @@ def run(tmp_path_factory):
     jax = {"fast": _stacked(jm.predict_batch, names)}
     jax["raw"] = [np.asarray(o) for o in jm._raw_fn(jm._folded,
                                                     arrays["b2"])]
-    return work, workers.results(), ref, jax
+    yield work, workers.results(), ref, jax
+    remove_at_teardown(request, work)
 
 
 def _outputs(r, prefix, n: int = 4):

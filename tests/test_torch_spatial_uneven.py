@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import SHALLOW, DPWorkers, images, port_calibrated
+from _torch_parity import (SHALLOW, DPWorkers, images, port_calibrated,
+                           remove_at_teardown)
 from yolov4tpu_torch import api as tapi
 from yolov4tpu_torch.config import YoloConfig
 
@@ -34,14 +35,14 @@ def _kw(world, side):
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory, tiny_classes):
+def run(tmp_path_factory, tiny_classes, request):
     params, state, _ = port_calibrated(C)
     calib = images(0, 4).astype(np.float32) / 255.0
     arrays = {"calib": calib}
     for side in (64, 96):
         arrays[f"x{side}"] = images(50 + side, 2, side).astype(
             np.float32) / 255.0
-    workers = {}
+    workers, folders = {}, []
     for world in (2, 3):
         scenarios = [
             {"name": name, "kind": "spatial", "config": _kw(world, side),
@@ -49,8 +50,9 @@ def run(tmp_path_factory, tiny_classes):
              "batches": [f"x{side}"], "calib": "calib",
              "int8": [f"x{side}"]}
             for name, (w, side) in RUNS.items() if w == world]
+        folders.append(tmp_path_factory.mktemp(f"spatial{world}"))
         workers[world] = DPWorkers(
-            tmp_path_factory.mktemp(f"spatial{world}"),
+            folders[-1],
             {"num_classes": C, "scenarios": scenarios}, params, state, {},
             world=world, arrays=arrays)
 
@@ -64,7 +66,9 @@ def run(tmp_path_factory, tiny_classes):
                      "fast": [o.numpy() for o in m.predict_batch(x)]}
         m.quantize(calib_imgs=calib)
         ref[side]["int8"] = [o.numpy() for o in m.predict_batch(x)]
-    return {w: wk.results() for w, wk in workers.items()}, ref
+    yield {w: wk.results() for w, wk in workers.items()}, ref
+    for folder in folders:
+        remove_at_teardown(request, folder)
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))

@@ -38,9 +38,13 @@ The folded forward (``apply_folded``) ends every conv in
 ``ops.epilogue.conv_epilogue``: bias add and activation in one
 hand-written CUDA pass on the card (``csrc/conv_epilogue.cu``), bit for
 bit the eager ``_activate(y + _bias(b))`` that it runs on the CPU and
-that ``apply`` (training, and BN inference) keeps.  ``_mish``,
-``_activate`` and ``_bias`` live in ``ops.epilogue`` beside the kernel's
-wrapper.
+that ``apply`` (BN inference) keeps.  ``_mish``, ``_activate`` and
+``_bias`` live in ``ops.epilogue`` beside the kernel's wrapper.
+
+The training forward (``apply(train=True)``) ends every BN conv in
+``ops.bn_act.bn_act``: the batch statistics, BN and the activation as one
+autograd op whose forward and backward are hand-written CUDA on the card
+(``csrc/bn_act.cu``), and the eager chain ``bn_act_reference`` elsewhere.
 """
 
 from __future__ import annotations
@@ -52,14 +56,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.bn_act import BN_EPS, batch_norm_train, bn_act
 from ..ops.epilogue import (_activate, _bias, _mish,  # noqa: F401
                             conv_epilogue, conv_epilogue_merge)
 from . import topology
 
 GRAPHS = {"yolov4": topology.yolov4, "yolov4-p6": topology.yolov4_p6}
-
-BN_EPS = 1e-3  # Keras BatchNormalization default epsilon
-BN_MOMENTUM = 0.99  # Keras BatchNormalization default momentum
 
 
 # ---------------------------------------------------------------------------
@@ -275,28 +277,6 @@ class _NCHWOps:
         return a + b
 
 
-class _BatchMoments(torch.autograd.Function):
-    """Per-channel (E[y], E[y^2]) over (N, H, W) of NCHW ``y``, both in
-    float32 from the float32 values of ``y``.  Autograd of
-    ``y.float().square().mean()`` would keep a float32 copy of every BN
-    input for the backward; this keeps ``y`` itself (in its compute dtype,
-    which the conv keeps anyway): d/dy = (g_mean + 2 y g_mean2) / count."""
-
-    @staticmethod
-    def forward(ctx, y):
-        ctx.save_for_backward(y)
-        yf = y.float()
-        return yf.mean(dim=(0, 2, 3)), yf.square().mean(dim=(0, 2, 3))
-
-    @staticmethod
-    def backward(ctx, g_mean, g_mean2):
-        (y,) = ctx.saved_tensors
-        count = y.numel() // y.shape[1]
-        g = (g_mean.view(1, -1, 1, 1)
-             + 2.0 * y.float() * g_mean2.view(1, -1, 1, 1)) / count
-        return g.to(y.dtype)
-
-
 class _ApplyOps(_NCHWOps):
     """Ops backend over (params, state) with BatchNorm, on NCHW activations
     (counterpart of the JAX package's ``_ApplyOps``)."""
@@ -320,23 +300,6 @@ class _ApplyOps(_NCHWOps):
         self.i = 0
         self.new_bn: List[Optional[Dict[str, torch.Tensor]]] = []
 
-    def _moments(self, y):
-        """Batch mean and E[y^2] per channel in one pass each, float32
-        accumulation (network.py:228-254 of the JAX package)."""
-        if self.sample_mask is None:
-            return _BatchMoments.apply(y)
-        ys = y * self.sample_mask.to(self.dtype)[:, None, None, None]
-        # max(n, 1): an all-padding micro-batch must give finite stats,
-        # which the caller discards.
-        n_valid = self.sample_mask.sum(dtype=torch.float32)
-        denom = torch.clamp(n_valid, min=1.0) * (y.shape[2] * y.shape[3])
-        mean = ys.sum(dim=(0, 2, 3), dtype=torch.float32) / denom
-        # All-padding: unit variance instead of zero, so the throwaway
-        # forward does not blow up by rsqrt(eps) per layer.
-        mean2 = (ys.float().square().sum(dim=(0, 2, 3)) / denom
-                 + torch.where(n_valid > 0, 0.0, 1.0))
-        return mean, mean2
-
     def conv(self, x, filters, kernel_size, downsampling=False,
              activation="leaky", batch_norm=True):
         p = self.convs[self.i]
@@ -357,6 +320,12 @@ class _ApplyOps(_NCHWOps):
             if "b" not in p:       # plain conv
                 return y
             return _activate(y + _bias(p["b"], self.dtype), activation)
+        if self.train:
+            out, mean, var = bn_act(y, p["gamma"], p["beta"], bn["mean"],
+                                    bn["var"], activation, self.sample_mask,
+                                    self.stats_gradient)
+            self.new_bn.append({"mean": mean, "var": var})
+            return out
         y, new = self._normalise(y, p["gamma"], p["beta"], bn)
         self.new_bn.append(new)
         return _activate(y, activation)
@@ -375,23 +344,15 @@ class _ApplyOps(_NCHWOps):
     def _normalise(self, y, gamma, beta, bn):
         """(BN of ``y``, the BN state after it)."""
         if self.train:
-            mean, mean2 = self._moments(y)
-            if not self.stats_gradient:
-                # YoloConfig.bn_stats_gradient=False: batch statistics are
-                # constants in the backward pass.
-                mean, mean2 = mean.detach(), mean2.detach()
-            var = torch.clamp(mean2 - mean.square(), min=0.0)
-            new = {"mean": (BN_MOMENTUM * bn["mean"]
-                            + (1 - BN_MOMENTUM) * mean).detach(),
-                   "var": (BN_MOMENTUM * bn["var"]
-                           + (1 - BN_MOMENTUM) * var).detach()}
-        else:
-            mean, var = bn["mean"], bn["var"]
-            new = bn
+            z, mean, var = batch_norm_train(
+                y, gamma, beta, bn["mean"], bn["var"], self.sample_mask,
+                self.stats_gradient)
+            return z, {"mean": mean, "var": var}
+        mean, var = bn["mean"], bn["var"]
         inv = torch.rsqrt(var + BN_EPS)
         scale = (gamma * inv).to(self.dtype)
         shift = (beta - mean * gamma * inv).to(self.dtype)
-        return y * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1), new
+        return y * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1), bn
 
 
 

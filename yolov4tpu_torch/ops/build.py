@@ -5,8 +5,9 @@ C interface.  ``build(name)`` compiles it into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, keyed by a hash of the
 source, the sources it includes by ``#include "..."`` and the flags so an
 edit of any of them rebuilds it, and returns the library's path;
-the wrappers load it with ``ctypes``.  nvcc's ptxas report (registers, shared
-memory, spills) is kept beside the library in a ``.log`` file.
+the wrappers load it with ``ctypes``; ``build_many`` builds several at
+once.  nvcc's ptxas report (registers, shared memory, spills) is kept
+beside the library in a ``.log`` file.
 
 ``compile_to`` is the one compile step, shared with the host code that
 ``yolov4tpu_torch.native`` builds with g++: each build writes a file of its
@@ -15,6 +16,7 @@ own process and moves it into place, so concurrent first builds are safe.
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import os
 import re
@@ -73,6 +75,13 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     return so
+
+
+def build_many(names) -> list:
+    """``build`` each of ``names`` at once, one nvcc each in a thread of
+    its own; their libraries' paths in order."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def compile_to(so: Path, cmd, timeout=None) -> subprocess.CompletedProcess:

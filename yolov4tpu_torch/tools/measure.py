@@ -1,5 +1,6 @@
-"""Timing on the card, the training path's wgrad shapes and the folded
-forward's epilogue shapes: the helpers ``chip_smoke.py``,
+"""Timing on the card, the training path's wgrad and BN + activation
+shapes and the folded forward's epilogue shapes, and the BN + activation
+backward's float32 yardstick: the helpers ``chip_smoke.py``,
 ``tools/wgrad_probe.py`` and the card's tests share."""
 
 from __future__ import annotations
@@ -111,3 +112,38 @@ def epilogue_shapes(side: int = 416, batch: int = 64, num_classes: int = 80,
                     images.contiguous(memory_format=torch.channels_last),
                     num_classes, depth)
     return seen
+
+
+def bn_act_shapes(side: int = 608, batch: int = 8, num_classes: int = 80,
+                  csp_repeats=None) -> list:
+    """(NCHW shape, activation) of every BN conv of the training forward
+    (``ops.bn_act`` sites: each conv but the three heads), in order."""
+    return [(shape, act) for shape, act in epilogue_shapes(
+        side, batch, num_classes, csp_repeats, s2d_stem=False)
+        if act != "linear"]
+
+
+def bn_act_float32(y, gamma, beta, mean, var, activation: str):
+    """The yardstick of the BN + activation kernels' backward: float32
+    autograd of the forward as ``y``'s dtype rounds it.  The batch
+    statistics from y's values in float32; scale, shift, y * scale and
+    the activation's input z rounded to y's dtype in value, with their
+    gradients passed straight through (so act' is taken at the z the
+    forward used); the activation in float32.  Returns (out, new_mean,
+    new_var) as ``ops.bn_act.bn_act`` does."""
+    from ..ops.bn_act import BN_EPS, BN_MOMENTUM
+    from ..ops.epilogue import _activate
+
+    def rounded(x):
+        return x + (x.to(y.dtype).float() - x).detach()
+
+    yf = y.float()
+    m = yf.mean(dim=(0, 2, 3))
+    v = torch.clamp(yf.square().mean(dim=(0, 2, 3)) - m.square(), min=0.0)
+    inv = torch.rsqrt(v + BN_EPS)
+    scale = rounded(gamma * inv).view(1, -1, 1, 1)
+    shift = rounded(beta - m * gamma * inv).view(1, -1, 1, 1)
+    z = rounded(rounded(yf * scale) + shift)
+    return (_activate(z, activation),
+            (BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * m).detach(),
+            (BN_MOMENTUM * var + (1 - BN_MOMENTUM) * v).detach())

@@ -26,6 +26,7 @@ so a checkpoint of either package resumes in the other.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 import zlib
@@ -39,6 +40,8 @@ from .config import YoloConfig, require_yolov4
 from .device import resolve_device, to_device_async
 from .losses import yolo_loss
 from .models import network
+from .ops import bn_act
+from .ops import build as kbuild
 from .parallel.mesh import make_mesh, on_rank0, replicate, shard_batch
 from .utils.profiling import span
 
@@ -409,6 +412,20 @@ def _compute_dtype(config: YoloConfig):
         else torch.float32
 
 
+@contextlib.contextmanager
+def _counting_bn_act(name: str, device):
+    """The training step's ``forward`` or ``backward`` span; where it
+    records, it counts the BN + activation kernels' forwards (``bn_act``)
+    or backwards (``bn_act_grad``) that ran inside it."""
+    counter = "LAUNCHES" if name == "forward" else "GRAD_LAUNCHES"
+    key = "bn_act" if name == "forward" else "bn_act_grad"
+    with span(name, device=device) as record:
+        before = getattr(bn_act, counter)
+        yield
+        if record:
+            record.count(**{key: getattr(bn_act, counter) - before})
+
+
 def _make_grad_and_metrics(num_classes: int, config: YoloConfig):
     """(params, state, batch) -> (grads, new_state, metrics): the shared
     core of every train step.  BN batch statistics are over the batch it is
@@ -436,7 +453,7 @@ def _make_grad_and_metrics(num_classes: int, config: YoloConfig):
         device = batch["image"].device
         sat = config.sat_epsilon > 0.0
         live = [t.detach().requires_grad_(True) for t in leaves(params)]
-        with span("forward", device=device):
+        with _counting_bn_act("forward", device):
             if batch["image"].dtype == torch.uint8:
                 # uint8 wire (config.transfer_uint8): normalise on the device.
                 batch = dict(batch,
@@ -454,14 +471,14 @@ def _make_grad_and_metrics(num_classes: int, config: YoloConfig):
                 total, comps, new_state = loss_of(
                     unflatten(params, live), state, batch, images, mask)
         if sat:
-            with span("backward", device=device):
+            with _counting_bn_act("backward", device):
                 (g_img,) = torch.autograd.grad(total, img)
-            with span("forward", device=device):
+            with _counting_bn_act("forward", device):
                 images = torch.clamp(images + config.sat_epsilon
                                      * torch.sign(g_img), 0.0, 1.0)
                 total, comps, new_state = loss_of(
                     unflatten(params, live), state, batch, images, mask)
-        with span("backward", device=device):
+        with _counting_bn_act("backward", device):
             grads = torch.autograd.grad(total, live)
         metrics = {"loss": total.detach(),
                    **{k: v.detach() for k, v in comps.items()}}
@@ -802,6 +819,11 @@ class Trainer:
             return torch.as_tensor(t).detach().to(self.device, torch.float32,
                                                   copy=True)
 
+        if self.device.type == "cuda":
+            # The kernels every step launches, built now and side by side
+            # rather than one after the other in the first step.
+            kbuild.build_many(("bn_act", "wgrad_3x3") if config.pallas_wgrad
+                              else ("bn_act",))
         self.params = tree_map(place, params)
         self.state = tree_map(place, state)
         if mesh is not None:
